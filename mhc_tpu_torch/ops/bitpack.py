@@ -1,0 +1,127 @@
+"""Unit-stream layout helpers around the kernels, in plain torch.
+
+Counterpart of the XLA (non-Pallas) parts of `mhc_tpu/ops/bitpack.py`
+that the Markov main path runs: the worst-case stream width, literal
+units, and the dense aligned payload's compaction and expansion. The
+kernels themselves live in `ops/kernels/`.
+
+Words are kept as torch.int32 bit patterns: torch's uint32 lacks shifts
+and many CPU ops. Bit order is MSB-first within each 32-bit word, and
+words are big-endian when serialized, so the byte stream equals the
+conceptual MSB-first bitstream. Byte <-> big-endian word conversions
+below go through a uint8 view and a flip of each 4-byte group, which
+relies on a little-endian host and device (x86, ARM and every CUDA card).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .huffman import MAX_CODE_LEN
+
+
+def words_for_block(block_size: int, max_len: int = MAX_CODE_LEN) -> int:
+    """u32 words that hold a worst-case encoded unit, +1 slack word."""
+    return (block_size * max_len + 31) // 32 + 1
+
+
+def _be_words(units: torch.Tensor) -> torch.Tensor:
+    """(R, du) uint8 -> (R, du/4) int32 big-endian words."""
+    R, du = units.shape
+    return units.reshape(R, du // 4, 4).flip(-1).contiguous().view(
+        torch.int32).reshape(R, du // 4)
+
+
+# ---------------------------------------------------------------------------
+# Raw-literal units (container FLAG_RAW_UNITS). A unit whose packed stream
+# would occupy at least the unit's own bytes in the container layout is
+# stored as a LITERAL: the original bytes, big-endian word-packed, with
+# bits = n_valid * 8. Detection is length-based and unambiguous: stored
+# lengths reach the layout size of the unit's bytes iff it is a literal.
+# ---------------------------------------------------------------------------
+
+def substitute_raw_units(words: torch.Tensor, bits: torch.Tensor,
+                         units: torch.Tensor, n_valid: torch.Tensor,
+                         aligned: bool):
+    """Post-pack literal substitution. words (R, W) int32 packed streams,
+    bits (R,) int32, units (R, du) uint8, n_valid (R,) int32. Returns
+    (words', bits') with literal units' streams replaced by their
+    original bytes and bits' = n_valid * 8."""
+    R, W = words.shape
+    du = units.shape[1]
+    if W < du // 4:
+        raise ValueError(f"stream width {W} cannot hold a {du}-byte "
+                         "literal unit")
+    b = bits.long()
+    nv = n_valid.long()
+    if aligned:
+        raw = (b + 31) // 32 >= (nv + 3) // 4
+    else:
+        raw = (b + 7) // 8 >= nv
+    pos = torch.arange(du, device=units.device)
+    masked = torch.where(pos[None, :] < nv[:, None], units,
+                         torch.zeros((), dtype=torch.uint8,
+                                     device=units.device))
+    uw = torch.zeros_like(words)
+    uw[:, : du // 4] = _be_words(masked)
+    words_out = torch.where(raw[:, None], uw, words)
+    bits_out = torch.where(raw, (nv * 8).to(bits.dtype), bits)
+    return words_out, bits_out
+
+
+def raw_unit_mask(stored_byte_lens: np.ndarray, n_valid: np.ndarray,
+                  aligned: bool) -> np.ndarray:
+    """Decode-side literal detection from the container index (host
+    numpy). stored_byte_lens are LAYOUT bytes (aligned: word count * 4).
+    Rows with n_valid 0 are never literal."""
+    sl = np.asarray(stored_byte_lens, np.int64)
+    nv = np.asarray(n_valid, np.int64)
+    if aligned:
+        return (sl == ((nv + 3) // 4) * 4) & (nv > 0)
+    return (sl == nv) & (nv > 0)
+
+
+def words_to_unit_bytes(words: torch.Tensor, du: int) -> torch.Tensor:
+    """(R, W) int32 big-endian stream words -> (R, du) uint8 literal
+    bytes. W may be narrower than du/4 when only a ragged final unit is
+    literal (the stream buffer is sized by the longest stream): the rest
+    reads as zeros."""
+    R, W = words.shape
+    w = torch.zeros((R, du // 4), dtype=torch.int32, device=words.device)
+    k = min(W, du // 4)
+    w[:, :k] = words[:, :k]
+    return w.view(torch.uint8).reshape(R, du // 4, 4).flip(-1).reshape(
+        R, du)
+
+
+# ---------------------------------------------------------------------------
+# Dense aligned payload: unit streams back to back at word granularity.
+# ---------------------------------------------------------------------------
+
+def device_compact_words(words: torch.Tensor,
+                         word_lens: torch.Tensor) -> torch.Tensor:
+    """(R, W) int32 streams + (R,) word counts -> (sum,) int32 dense
+    payload, unit after unit (a boolean mask selects row-major)."""
+    W = words.shape[1]
+    keep = (torch.arange(W, device=words.device)[None, :]
+            < word_lens.to(words.device)[:, None])
+    return words[keep]
+
+
+def device_expand_words_u32(payload: torch.Tensor,
+                            word_offsets: torch.Tensor,
+                            word_lens: torch.Tensor, W: int) -> torch.Tensor:
+    """Inverse of device_compact_words: (T,) int32 payload + (R,) word
+    offsets and lengths -> (R, W) int32 zero-padded streams."""
+    R = word_lens.shape[0]
+    dev = payload.device
+    T = payload.shape[0]
+    if T == 0 or R == 0:
+        return torch.zeros((R, W), dtype=torch.int32, device=dev)
+    iw = torch.arange(W, device=dev)
+    idx = word_offsets.to(dev).long()[:, None] + iw[None, :]
+    val = payload[idx.clamp(0, T - 1)]
+    ok = iw[None, :] < word_lens.to(dev)[:, None]
+    return torch.where(ok, val, torch.zeros((), dtype=torch.int32,
+                                              device=dev))

@@ -1,0 +1,64 @@
+"""K1 — Markov (prev, cur) histogram: CUDA kernel wrapper + plain version.
+
+Kernel: csrc/histogram.cu (sm_90a), which replaces
+mhc_tpu/ops/kernels/histogram_pallas.py::markov_hist_pallas. Bounded by
+shared-memory atomics (one per symbol, serialised on skewed data) over
+one read of the input per half of the prev range; see the source note.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _check(units: torch.Tensor, n_valid: torch.Tensor) -> str:
+    dev = _build.require_cuda_or_cpu(units, n_valid)
+    if units.dtype != torch.uint8 or units.dim() != 2:
+        raise ValueError("units must be a (R, n) uint8 tensor")
+    if n_valid.dtype != torch.int32 or n_valid.shape != units.shape[:1]:
+        raise ValueError("n_valid must be a (R,) int32 tensor")
+    if not (units.is_contiguous() and n_valid.is_contiguous()):
+        raise ValueError("units and n_valid must be contiguous")
+    return dev
+
+
+def markov_hist_plain(units: torch.Tensor,
+                      n_valid: torch.Tensor) -> torch.Tensor:
+    """bincount of prev*256+cur over the valid positions; (256, 256)
+    int32."""
+    u = units.long()
+    R, n = u.shape
+    prev = torch.cat([torch.zeros((R, 1), dtype=torch.long,
+                                  device=u.device), u[:, :-1]], dim=1)
+    valid = (torch.arange(n, device=u.device)[None, :]
+             < n_valid.to(u.device)[:, None])
+    pairs = (prev * 256 + u)[valid]
+    return torch.bincount(pairs, minlength=65536).to(
+        torch.int32).reshape(256, 256)
+
+
+def markov_hist(units: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """(R, n) uint8 units, (R,) int32 n_valid -> (256, 256) int32 counts.
+    CPU tensors take the plain version; CUDA tensors launch K1."""
+    if _check(units, n_valid) == "cpu":
+        return markov_hist_plain(units, n_valid)
+    lib, fn = _build.load("histogram", "mhc_markov_hist", _ARGTYPES)
+    out = torch.zeros((256, 256), dtype=torch.int32, device=units.device)
+    R, n = units.shape
+    if R * n == 0:
+        return out
+    rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, out.data_ptr(),
+            _build.stream_ptr(units.device))
+    _build.check(lib, rc, "markov_hist launch")
+    markov_hist.launches += 1
+    return out
+
+
+markov_hist.launches = 0

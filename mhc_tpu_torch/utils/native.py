@@ -1,0 +1,167 @@
+"""ctypes binding for the repo's native host runtime (native/libmhc_host.so).
+
+The port's own binding to the C++ library that `mhc_tpu` also uses: the
+deterministic Huffman length builder and the container's metadata
+decoders. The library is built on demand with `make -C native`; every
+entry point used here keeps a numpy fallback, so the port also works
+where no C++ compiler is installed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_NATIVE = os.path.join(_REPO, "native")
+_SO = os.path.join(_NATIVE, "libmhc_host.so")
+
+_HOST_VERSION = 2   # mhc_version()
+_CODEC_VERSION = 5  # mhc_codec_version()
+
+_lib = None
+_tried = False
+
+
+def _stale() -> bool:
+    """The .so is missing or older than one of its sources."""
+    if not os.path.exists(_SO):
+        return True
+    so_t = os.path.getmtime(_SO)
+    return any(os.path.getmtime(os.path.join(_NATIVE, f)) > so_t
+               for f in os.listdir(_NATIVE) if f.endswith(".cpp"))
+
+
+def _load():
+    global _lib, _tried
+    if _tried:
+        return _lib
+    _tried = True
+    if _stale():
+        try:
+            subprocess.run(["make", "-C", _NATIVE], capture_output=True,
+                           timeout=120, check=False)
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+    if not os.path.exists(_SO):
+        return None
+    try:
+        lib = ctypes.CDLL(_SO)
+    except OSError:
+        return None
+    lib.mhc_split.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.mhc_split.restype = None
+    lib.mhc_code_lengths.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+    lib.mhc_code_lengths.restype = None
+    lib.mhc_entropy_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    lib.mhc_entropy_decode.restype = ctypes.c_int64
+    lib.mhc_codec_version.restype = ctypes.c_int
+    lib.mhc_version.restype = ctypes.c_int
+    if (lib.mhc_version() == _HOST_VERSION
+            and lib.mhc_codec_version() == _CODEC_VERSION):
+        _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def code_lengths(scaled_counts: np.ndarray, max_len: int) -> np.ndarray:
+    """Huffman code lengths for (..., 256) pre-rescaled counts, bit-identical
+    to `ops.huffman.code_lengths_np`, which it falls back to without the
+    library."""
+    counts = np.ascontiguousarray(scaled_counts, dtype=np.int32)
+    flat = counts.reshape(-1, 256)
+    lib = _load()
+    if lib is None:
+        from ..ops import huffman
+        rows = [huffman.code_lengths_np(row, max_len) for row in flat]
+        return np.stack(rows).reshape(counts.shape).astype(np.uint8)
+    out = np.empty(flat.shape, dtype=np.uint8)
+    lib.mhc_code_lengths(flat.ctypes.data, flat.shape[0], max_len,
+                         out.ctypes.data)
+    return out.reshape(counts.shape)
+
+
+def entropy_decode(coded: bytes, lengths: np.ndarray, n_out: int):
+    """Decode n_out symbols of a canonical order-0 stream (container
+    metadata sections). Returns (symbols uint8, bytes_consumed)."""
+    lens = np.ascontiguousarray(lengths, dtype=np.uint8)
+    A = lens.shape[0]
+    src = np.frombuffer(coded, dtype=np.uint8)
+    out = np.empty(n_out, dtype=np.uint8)
+    if n_out == 0:
+        return out, 0
+    lib = _load()
+    if lib is not None:
+        used = lib.mhc_entropy_decode(src.ctypes.data, src.size,
+                                      lens.ctypes.data, A, n_out,
+                                      out.ctypes.data)
+        if used < 0:
+            raise ValueError("mhc: corrupt entropy-coded section")
+        return out, int(used)
+    return _entropy_decode_py(src, lens, n_out, out)
+
+
+def _entropy_decode_py(src, lens, n_out, out):
+    """Canonical decode through a 15-bit lookup table, in Python."""
+    from ..ops.canonical import canonical_codes_host
+    full = np.zeros(256, np.int64)
+    full[:lens.shape[0]] = lens
+    codes = canonical_codes_host(full)["codes"].astype(np.int64)
+    lut_sym = np.zeros(1 << 15, np.uint8)
+    lut_len = np.zeros(1 << 15, np.uint8)
+    for s in range(lens.shape[0]):
+        if full[s] == 0:
+            continue
+        a = int(codes[s]) << (15 - int(full[s]))
+        b = (int(codes[s]) + 1) << (15 - int(full[s]))
+        lut_sym[a:b] = s
+        lut_len[a:b] = full[s]
+    mask64 = (1 << 64) - 1
+    acc = nbits = pos = bits_used = 0
+    nb = src.size
+    for i in range(n_out):
+        while nbits <= 56:
+            byte = int(src[pos]) if pos < nb else 0
+            acc = (acc | byte << (56 - nbits)) & mask64
+            pos += 1
+            nbits += 8
+        w = acc >> (64 - 15)
+        ln = int(lut_len[w])
+        if ln == 0:
+            raise ValueError("mhc: corrupt entropy-coded section")
+        out[i] = lut_sym[w]
+        acc = (acc << ln) & mask64
+        nbits -= ln
+        bits_used += ln
+    return out, (bits_used + 7) // 8
+
+
+def split_rows(payload, lens: np.ndarray, stride: int) -> np.ndarray:
+    """Packed payload + per-row lengths -> (R, stride) uint8 zero-padded
+    rows."""
+    buf = np.frombuffer(payload, dtype=np.uint8)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    R = lens.shape[0]
+    offsets = np.zeros(R, dtype=np.int64)
+    np.cumsum(lens[:-1], out=offsets[1:])
+    rows = np.zeros((R, stride), dtype=np.uint8)
+    lib = _load()
+    if lib is None:
+        mask = np.arange(stride)[None, :] < lens[:, None]
+        rows[mask] = buf[: int(lens.sum())]
+        return rows
+    lib.mhc_split(buf.ctypes.data, R, stride, lens.ctypes.data,
+                  offsets.ctypes.data, rows.ctypes.data)
+    return rows
