@@ -3,30 +3,43 @@
 
     python3 chip_smoke.py
 
-Drives the port's Markov main path at its real size — the 100 MB mixed
-corpus of `bench.make_corpus` (seed 42), 64 KB blocks, 8 KB decode units,
-12,800 unit streams resident on the card — through the entry points a
-user calls, after building and checking every kernel on that path:
+Drives the port's paths at their real size on the 100 MB mixed corpus of
+`bench.make_corpus` (seed 42), 64 KB blocks, all unit streams resident
+on the card, through the entry points a user calls, after building and
+checking every kernel those paths run:
 
   1. device: fail without CUDA; print `nvidia-smi` name and power limit
-  2. build:  nvcc each csrc/*.cu for sm_90a (ptxas resources printed)
-  3. kernels: each kernel vs its plain PyTorch version on the main
-     path's own inputs — exact equality (integer codec, tolerance 0),
-     CUDA-event times of both (minimum over repeated calls)
-  4. main path: engine.stage -> encode -> decode -> fetch_bytes with the
-     launch counters reset before and read after; bit-exact round trip;
-     container size and sha256 equal to the JAX reference's; the
-     container decodes through api.decompress; encode and decode GB/s
-  5. oracle: when `make -C oracle` builds, the container is no larger
-     than the single-core C++ oracle's
+  2. build:  nvcc each csrc/*.cu for sm_90a, all at once (ptxas
+     resources printed)
+  3. kernels: each kernel vs its plain PyTorch version on its path's own
+     inputs — exact equality (integer codec, tolerance 0), CUDA-event
+     times of both (minimum over repeated calls): K1, K3, K5, K4, K7m on
+     the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) == K3(x);
+     K2, K3 (again, in the same row) and K7o on the order-0 inputs
+     (6,400 units of 16 KB)
+  4. main path (Markov): engine.stage -> encode -> decode -> fetch_bytes
+     with the launch counters reset before and read after; bit-exact
+     round trip; container size and sha256 equal to the JAX reference's;
+     the container decodes through api.decompress; encode and decode GB/s
+  5. dense path: the same Markov input through engine.encode with
+     pack_method="dense" (K5 then K4, K3 never launched); the same
+     container; encode GB/s, timed in turns with the fused encode
+  6. order-0 path: engine.stage(mode="huffman") -> encode -> decode ->
+     fetch_bytes, counters as in 4 (K2, K3, K7o launched, K1 not);
+     bit-exact; the JAX reference's container; api.compress writes it and
+     api.decompress reads it; encode and decode GB/s
+  7. oracle: when `make -C oracle` builds, each container is no larger
+     than the single-core C++ oracle's (em for Markov, e0 for order-0)
 Every phase prints one JSON line; any failure raises (non-zero exit, no
-final line). The last line is the device summary.
+final line). Before the last line come the `nvidia-smi` line and the
+`kernels` line; the last line is the device summary.
 
 Imports nothing of JAX or mhc_tpu.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import os
@@ -41,10 +54,29 @@ CORPUS_BYTES = 100 << 20
 REF_100MB_LEN = 82_068_481
 REF_100MB_SHA256 = ("28da84b513c9d2ba04aea6cd708d97b5"
                     "a0727961c15f9ba9034e14d34e7ecdba")
+# mhc_tpu.api.compress(bench.make_corpus(100 << 20), mode="huffman"):
+REF_ORDER0_100MB_LEN = 96_102_412
+REF_ORDER0_100MB_SHA256 = ("1b6cb2a06fb5998b21389a05f2fdf9a5"
+                           "7b368c9eb138d3b926a3ea7ffe2ef6ab")
 # the same for bench.make_corpus(4 << 20) (checked by the CPU tests)
 REF_4MB_SHA256 = ("54f0867e82f83dd27606e1a1df827687"
                   "846701316e48a2dc56f0a09f274bcc86")
 TIMED_REPS = 3
+
+# launch-counter name -> (source, the TPU kernel's pallas_call it replaces)
+KERNELS = {
+    "markov_hist": ("histogram.cu",
+                    "mhc_tpu/ops/kernels/histogram_pallas.py:98"),
+    "order0_hist": ("histogram.cu",
+                    "mhc_tpu/ops/kernels/histogram_pallas.py:167"),
+    "pack_units": ("encode.cu", "mhc_tpu/ops/kernels/encode_pallas.py:711"),
+    "lookup_cl": ("encode.cu", "mhc_tpu/ops/kernels/lookup_pallas.py:278"),
+    "pack_cl": ("encode.cu", "mhc_tpu/ops/kernels/encode_pallas.py:291"),
+    "decode_units": ("decode.cu",
+                     "mhc_tpu/ops/kernels/decode_pallas.py:857"),
+    "decode_units_order0": ("decode.cu",
+                            "mhc_tpu/ops/kernels/decode_pallas.py:845"),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -74,144 +106,262 @@ def max_abs_err(a, b) -> float:
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
 
-def phase_device(torch) -> None:
+def as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def phase_device(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
+    return smi
 
 
 def phase_build(names) -> None:
+    """One nvcc per source, all started together."""
     from mhc_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
     for name in names:
-        t0 = time.perf_counter()
-        _build.build(name)
         with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
             ptxas = [ln.strip() for ln in f
                      if "registers" in ln or "spill" in ln]
-        emit("build", kernel=name, source=_build.source(name),
-             seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+        emit("build", kernel=name, source=_build.source(name), ptxas=ptxas)
+    emit("build", all_seconds=round(time.perf_counter() - t0, 3))
 
 
-def phase_kernels(torch, data: bytes, dev) -> list:
-    """Each kernel against its plain version on the main path's inputs."""
+def compare(torch, rows: dict, name: str, kern, plain, reps: int,
+            plain_reps: int, inputs: str = "markov"):
+    """Kernel `name` vs its plain version on one path's inputs
+    ("markov" or "order0"), tolerance 0; records the comparison in the
+    kernel's row and returns the kernel's outputs. A kernel that both
+    paths run (K3) is held on each path's inputs: its row's ms, plain_ms
+    and launches are the first path's, its max_abs_err the largest, and
+    `on_inputs` has each comparison."""
+    got, ms = min_ms(torch, kern, reps)
+    ref, plain_ms = min_ms(torch, plain, plain_reps)
+    got, ref = as_tuple(got), as_tuple(ref)
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref, strict=True))
+    shapes = [list(t.shape) for t in got]
+    emit("kernel", kernel=name, inputs=inputs, shapes=shapes,
+         max_abs_err=err, tolerance=0, ms=ms, plain_ms=plain_ms,
+         plain_inputs="full shape")
+    if err != 0:
+        raise AssertionError(f"{name} differs from its plain version on "
+                             f"the {inputs} inputs (max abs err {err}); "
+                             "tolerance is 0")
+    src, replaces = KERNELS[name]
+    row = rows.setdefault(name, {
+        "name": name, "route": "cuda",
+        "source": f"mhc_tpu_torch/csrc/{src}", "replaces": replaces,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "on_inputs": {}})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["on_inputs"][inputs] = {"shapes": shapes, "max_abs_err": err,
+                                "ms": ms, "plain_ms": plain_ms}
+    return got
+
+
+def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
+    """K1, K3, K5, K4 and K7m against their plain versions on the Markov
+    main path's inputs."""
     from mhc_tpu_torch import engine
     from mhc_tpu_torch.models.entropy import MARKOV
     from mhc_tpu_torch.ops.kernels import (decode_cuda, encode_cuda,
                                            histogram_cuda)
     st = engine.stage(data, device=dev)
     u, nv = st.units, st.n_valid
-    rows = []
-
-    def compare(name, src, replaces, kern, plain, reps, plain_reps):
-        got, ms = min_ms(torch, kern, reps)
-        ref, plain_ms = min_ms(torch, plain, plain_reps)
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        err = max(max_abs_err(a, b) for a, b in zip(got, ref))
-        emit("kernel", kernel=name, shapes=[list(t.shape) for t in got],
-             max_abs_err=err, tolerance=0, ms=ms, plain_ms=plain_ms)
-        if err != 0:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"(max abs err {err}); tolerance is 0")
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"mhc_tpu_torch/csrc/{src}",
-                     "replaces": replaces, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms})
-        return got
-
     (counts,) = compare(
-        "markov_hist", "histogram.cu",
-        "mhc_tpu/ops/kernels/histogram_pallas.py:98",
+        torch, rows, "markov_hist",
         lambda: histogram_cuda.markov_hist(u, nv),
         lambda: histogram_cuda.markov_hist_plain(u, nv), 10, 3)
     lengths = MARKOV.lengths_from_counts(counts.cpu().numpy())
     t = MARKOV.tables_from_lengths(lengths, dev)
-    compare("pack_units", "encode.cu",
-            "mhc_tpu/ops/kernels/encode_pallas.py:711",
-            lambda: encode_cuda.pack_units(u, nv, t["codes"], t["lengths"]),
-            lambda: encode_cuda.pack_units_plain(u, nv, t["codes"],
-                                                 t["lengths"]), 5, 2)
+    tab = (t["codes"], t["lengths"])
+    fused = compare(torch, rows, "pack_units",
+                    lambda: encode_cuda.pack_units(u, nv, *tab),
+                    lambda: encode_cuda.pack_units_plain(u, nv, *tab), 5, 2)
+    (cl,) = compare(torch, rows, "lookup_cl",
+                    lambda: encode_cuda.lookup_cl(u, nv, *tab),
+                    lambda: encode_cuda.lookup_cl_plain(u, nv, *tab), 5, 2)
+    split = compare(torch, rows, "pack_cl",
+                    lambda: encode_cuda.pack_cl(cl),
+                    lambda: encode_cuda.pack_cl_plain(cl), 5, 2)
+    same = all(torch.equal(a, b) for a, b in zip(split, fused, strict=True))
+    emit("kernel", check="pack_cl(lookup_cl(x)) == pack_units(x)",
+         words_and_bits_equal=same)
+    if not same:
+        raise AssertionError("K4(K5(x)) differs from K3(x)")
+    del cl, split, fused
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     du = enc.decode_unit
     dec_args = (words, n_dec, t["lim"], t["base"], t["first_code"],
                 t["sorted_syms"])
-    compare("decode_units", "decode.cu",
-            "mhc_tpu/ops/kernels/decode_pallas.py:857",
+    compare(torch, rows, "decode_units",
             lambda: decode_cuda.decode_units(*dec_args, n_out=du),
             lambda: decode_cuda.decode_units_plain(*dec_args, n_out=du),
             5, 1)
-    return rows
 
 
-def phase_main_path(torch, data: bytes, dev) -> tuple[bytes, dict]:
-    from mhc_tpu_torch import api, engine
+def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
+    """K2, K3 and K7o against their plain versions on the order-0 path's
+    inputs (K3 with the broadcast order-0 tables)."""
+    from mhc_tpu_torch import engine
+    from mhc_tpu_torch.models.entropy import ORDER0
     from mhc_tpu_torch.ops.kernels import (decode_cuda, encode_cuda,
                                            histogram_cuda)
+    st = engine.stage(data, mode="huffman", device=dev)
+    u, nv = st.units, st.n_valid
+    (counts,) = compare(
+        torch, rows, "order0_hist",
+        lambda: histogram_cuda.order0_hist(u, nv),
+        lambda: histogram_cuda.order0_hist_plain(u, nv), 10, 3, "order0")
+    lengths = ORDER0.lengths_from_counts(counts.cpu().numpy())
+    t = ORDER0.tables_from_lengths(lengths, dev)
+    tab = (t["codes"], t["lengths"])
+    compare(torch, rows, "pack_units",
+            lambda: encode_cuda.pack_units(u, nv, *tab),
+            lambda: encode_cuda.pack_units_plain(u, nv, *tab), 5, 2,
+            "order0")
+    enc = engine.encode(st, lengths=lengths)
+    words, n_dec, _, t = engine.decode_inputs(enc)
+    du = enc.decode_unit
+    dec_args = (words, n_dec, t["lim"], t["base"], t["first_code"],
+                t["sorted_syms"])
+    compare(torch, rows, "decode_units_order0",
+            lambda: decode_cuda.decode_units(*dec_args, n_out=du,
+                                             markov=False),
+            lambda: decode_cuda.decode_units_plain(*dec_args, n_out=du,
+                                                   markov=False),
+            5, 1, "order0")
+
+
+def run_counted(torch, fn):
+    """fn() with the launch counters set to 0 just before and read just
+    after; returns (fn's result, {kernel: launches})."""
+    from mhc_tpu_torch.ops.kernels import _build
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: _build.LAUNCHES[k] for k in KERNELS}
+
+
+def require_launches(path: str, launches: dict, want: dict) -> None:
+    """want: kernel -> "once" (exactly 1), "some" (>= 1) or "none" (0)."""
+    ok = {"once": lambda n: n == 1, "some": lambda n: n >= 1,
+          "none": lambda n: n == 0}
+    bad = {k: launches[k] for k, rule in want.items()
+           if not ok[rule](launches[k])}
+    if bad:
+        raise AssertionError(f"{path}: launches {bad} break {want}")
+
+
+def check_container(path: str, blob: bytes, ref_len: int,
+                    ref_sha: str) -> str:
+    digest = hashlib.sha256(blob).hexdigest()
+    if len(blob) != ref_len or digest != ref_sha:
+        raise AssertionError(
+            f"{path}: container ({len(blob)} B, {digest}) differs from the "
+            f"JAX reference's ({ref_len} B, {ref_sha})")
+    return digest
+
+
+def round_trip(torch, data: bytes, mode: str, dev, path: str,
+               want: dict, ref_len: int, ref_sha: str):
+    """One path end to end through the engine, counted, then timed;
+    returns (container, launches)."""
+    from mhc_tpu_torch import api, engine
+    from mhc_tpu_torch.ops import bitpack
     from mhc_tpu_torch.utils import native
-    wrappers = {"markov_hist": histogram_cuda.markov_hist,
-                "pack_units": encode_cuda.pack_units,
-                "decode_units": decode_cuda.decode_units}
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    for w in wrappers.values():
-        w.launches = 0
-    st = engine.stage(data, device=dev)
-    enc = engine.encode(st)
-    out = engine.decode(enc)
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    if engine.fetch_bytes(enc, out) != data:
-        raise AssertionError("main path round trip is not bit-exact")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    def drive():
+        st = engine.stage(data, mode=mode, device=dev)
+        enc = engine.encode(st)
+        return st, enc, engine.decode(enc)
 
+    (st, enc, out), launches = run_counted(torch, drive)
+    if engine.fetch_bytes(enc, out) != data:
+        raise AssertionError(f"{path}: round trip is not bit-exact")
+    require_launches(path, launches, want)
+    del out
     _, enc_ms = min_ms(torch, lambda: engine.encode(st), TIMED_REPS)
     _, dec_ms = min_ms(torch, lambda: engine.decode(enc), TIMED_REPS)
     peak = torch.cuda.max_memory_allocated()
 
     crc = zlib.crc32(data) & 0xFFFFFFFF
     blob = engine.assemble_container(enc, crc)
-    digest = hashlib.sha256(blob).hexdigest()
-    emit("main_path", n_bytes=len(data), n_units=enc.n_units,
-         launches=launches,
+    raw = int(bitpack.raw_unit_mask(enc.byte_lens, st.n_valid.cpu().numpy(),
+                                    enc.aligned).sum())
+    emit(path, mode=mode, n_bytes=len(data), n_units=enc.n_units,
+         decode_unit=enc.decode_unit, literal_units=raw, launches=launches,
          table_builder="native C++" if native.available() else "numpy",
          encode_ms=enc_ms, decode_ms=dec_ms,
          encode_GBps=len(data) / enc_ms / 1e6,
          decode_GBps=len(data) / dec_ms / 1e6,
          container_bytes=len(blob), ratio=len(blob) / len(data),
-         sha256=digest, peak_device_bytes=peak)
-    if len(blob) != REF_100MB_LEN or digest != REF_100MB_SHA256:
-        raise AssertionError(
-            f"container ({len(blob)} B, {digest}) differs from the JAX "
-            f"reference's ({REF_100MB_LEN} B, {REF_100MB_SHA256})")
+         sha256=hashlib.sha256(blob).hexdigest(), peak_device_bytes=peak)
+    check_container(path, blob, ref_len, ref_sha)
+    if api.compress(data, mode=mode, device=dev) != blob:
+        raise AssertionError(f"{path}: api.compress wrote other bytes")
     if api.decompress(blob, device=dev) != data:
-        raise AssertionError("api.decompress did not return the input")
-    emit("decompress", ok=True)
+        raise AssertionError(f"{path}: api.decompress did not return "
+                             "the input")
+    emit("decompress", path=path, ok=True)
     return blob, launches
 
 
-def phase_oracle(blob: bytes, corpus_path: str) -> None:
+def phase_dense_path(torch, data: bytes, dev) -> dict:
+    """Markov 100 MB through engine.encode(pack_method="dense")."""
+    from mhc_tpu_torch import engine
+    torch.cuda.empty_cache()
+    st = engine.stage(data, device=dev)
+    enc, launches = run_counted(
+        torch, lambda: engine.encode(st, pack_method="dense"))
+    require_launches("dense_path", launches,
+                     {"lookup_cl": "once", "pack_cl": "once",
+                      "pack_units": "none"})
+    # dense and fused timed in turns, so that the two compare within one
+    # call: minimum over the turns of each
+    ms = {"fused": float("inf"), "dense": float("inf")}
+    for turn in ("fused", "dense", "dense", "fused") * 2:
+        _, t = min_ms(torch, lambda: engine.encode(st, pack_method=turn), 1)
+        ms[turn] = min(ms[turn], t)
+    blob = engine.assemble_container(enc, zlib.crc32(data) & 0xFFFFFFFF)
+    emit("dense_path", n_bytes=len(data), launches=launches,
+         encode_ms=ms["dense"], encode_GBps=len(data) / ms["dense"] / 1e6,
+         fused_encode_ms_in_turns=ms["fused"], container_bytes=len(blob),
+         sha256=hashlib.sha256(blob).hexdigest())
+    check_container("dense_path", blob, REF_100MB_LEN, REF_100MB_SHA256)
+    return launches
+
+
+def phase_oracle(blobs: dict, corpus_path: str) -> None:
+    """blobs: oracle mode ("em" or "e0") -> the port's container."""
     r = subprocess.run(["make", "-C", os.path.join(REPO, "oracle")],
                        capture_output=True, text=True, timeout=300)
     exe = os.path.join(REPO, "oracle", "mh_oracle")
     if r.returncode != 0 or not os.path.exists(exe):
         emit("oracle", skipped="make -C oracle failed")
         return
-    res = subprocess.run([exe, "bench", "em", corpus_path],
-                         capture_output=True, text=True, timeout=600,
-                         check=True)
-    ref = json.loads(res.stdout.strip())
-    emit("oracle", oracle=ref, container_bytes=len(blob),
-         vs_oracle=len(blob) / ref["compressed_bytes"])
-    if len(blob) > ref["compressed_bytes"]:
-        raise AssertionError("container is larger than the oracle's")
+    for mode, blob in blobs.items():
+        res = subprocess.run([exe, "bench", mode, corpus_path],
+                             capture_output=True, text=True, timeout=600,
+                             check=True)
+        ref = json.loads(res.stdout.strip())
+        emit("oracle", mode=mode, oracle=ref, container_bytes=len(blob),
+             vs_oracle=len(blob) / ref["compressed_bytes"])
+        if len(blob) > ref["compressed_bytes"]:
+            raise AssertionError(f"{mode} container is larger than the "
+                                 "oracle's")
 
 
 def main() -> int:
@@ -222,19 +372,38 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from bench import make_corpus
     from mhc_tpu_torch.ops.kernels import _build
-    phase_device(torch)
+    smi = phase_device(torch)
     phase_build(("histogram", "encode", "decode"))
     dev = torch.device("cuda:0")
     data = make_corpus(CORPUS_BYTES)
-    rows = phase_kernels(torch, data, dev)
-    blob, launches = phase_main_path(torch, data, dev)
+    rows: dict = {}
+    phase_kernels_markov(torch, data, dev, rows)
+    phase_kernels_order0(torch, data, dev, rows)
+    markov_blob, launches = round_trip(
+        torch, data, "markov", dev, "main_path",
+        {"markov_hist": "once", "pack_units": "once",
+         "decode_units": "once"}, REF_100MB_LEN, REF_100MB_SHA256)
+    dense_launches = phase_dense_path(torch, data, dev)
+    order0_blob, order0_launches = round_trip(
+        torch, data, "huffman", dev, "order0_path",
+        {"order0_hist": "some", "pack_units": "some",
+         "decode_units_order0": "some", "markov_hist": "none"},
+        REF_ORDER0_100MB_LEN, REF_ORDER0_100MB_SHA256)
     corpus_path = os.path.join(_build.BUILD_DIR, "corpus_100mb.bin")
     with open(corpus_path, "wb") as f:
         f.write(data)
-    phase_oracle(blob, corpus_path)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    print(json.dumps({"kernels": rows}), flush=True)
+    phase_oracle({"em": markov_blob, "e0": order0_blob}, corpus_path)
+    # each kernel's launches on the path that runs it (K3: the main path;
+    # the order-0 path's launches are in its own line)
+    path_of = {"order0_hist": order0_launches,
+               "decode_units_order0": order0_launches,
+               "lookup_cl": dense_launches, "pack_cl": dense_launches}
+    for name, row in rows.items():
+        row["launches"] = path_of.get(name, launches)[name]
+    if set(rows) != set(KERNELS):
+        raise AssertionError(f"kernels unchecked: {set(KERNELS) - set(rows)}")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,10 +6,11 @@ reference: for the same (bytes, mode, block_size, decode_unit, crc) both
 packages write the same MHTC container, and each decodes the other's.
 This package imports torch and numpy only, never jax or mhc_tpu.
 
-Ported so far: the Markov main path (histogram, host table build,
-fused lookup+pack, decode) through `compress`/`decompress` and the
-device-resident `engine`. Order-0 mode is declared and raises
-NotImplementedError.
+Ported so far: both modes, Markov and order-0 (histogram, host table
+build, lookup+pack — fused, or split into a cl-plane lookup and a pack
+with pack_method="dense" — and decode), through `compress`/`decompress`
+and the device-resident `engine`. `device=None` means the first CUDA
+card and raises without one; the CPU runs only when named.
 """
 
 from .api import (DEFAULT_BLOCK_SIZE, DEFAULT_DECODE_UNIT, compress,

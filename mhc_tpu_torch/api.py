@@ -1,9 +1,9 @@
 """Public single-process API: compress / decompress.
 
 Counterpart of `mhc_tpu/api.py`: thin wrappers over the device engine
-and the container. The reference's chunked host<->device overlap,
-segment chaining and file APIs are not ported yet (ROADMAP item 8);
-here the whole input is staged at once.
+and the container, for both modes. The reference's chunked host<->device
+overlap, segment chaining and file APIs are not ported yet (ROADMAP item
+8); here the whole input is staged at once.
 """
 
 from __future__ import annotations
@@ -62,49 +62,59 @@ def resolve_decode_unit(block_size: int, decode_unit: int | None,
 
 def compress(data: bytes, mode: str = "markov",
              block_size: int = DEFAULT_BLOCK_SIZE, crc: bool = True,
-             decode_unit: int | None = None, device=None) -> bytes:
+             decode_unit: int | None = None, device=None,
+             pack_method: str | None = None) -> bytes:
     """Input bytes -> MHTC container, coded on `device` (None: the first
-    CUDA card, else the CPU)."""
+    CUDA card; raises without one — pass "cpu" for the plain versions).
+    `pack_method` is "fused" (None, K3) or "dense" (K5 then K4); both
+    write the same bytes."""
     from . import engine
     model = get_model(mode)
-    model.require_markov()
+    pack_method = engine.check_pack_method(pack_method)
     if block_size & (block_size - 1):
         raise ValueError("block_size must be a power of two")
     du = resolve_decode_unit(block_size, decode_unit, model.markov)
     checksum = (zlib.crc32(data) & 0xFFFFFFFF) if crc else None
     if len(data) == 0:
         return container.build_container(
-            model.mode, 0, block_size, np.zeros((256, 256), np.uint8),
+            model.mode, 0, block_size,
+            np.zeros((256, 256) if model.markov else (256,), np.uint8),
             np.zeros((0,), np.int64), b"", checksum, decode_unit=du)
     st = engine.stage(data, mode, block_size, du, device)
-    return engine.assemble_container(engine.encode(st), checksum)
+    return engine.assemble_container(
+        engine.encode(st, pack_method=pack_method), checksum)
 
 
 def decompress(blob: bytes, verify: bool = True, device=None) -> bytes:
-    """MHTC container -> original bytes, decoded on `device`."""
+    """MHTC container of either mode and either payload layout ->
+    original bytes, decoded on `device` (None: the first CUDA card;
+    raises without one)."""
     from . import engine
     meta = container.parse_container(blob)
     model = get_model(meta.mode)
-    model.require_markov()
     if meta.orig_len == 0:
         return b""
-    if not meta.flags & container.FLAG_ALIGNED_PAYLOAD:
-        raise ValueError("mhc: unaligned Markov payload (pre-alignment "
-                         "container layout) is not supported")
+    dev = resolve_device(device)
     du = meta.decode_unit or meta.block_size
     R = len(meta.byte_lengths)
     if R != -(-meta.orig_len // du):
         raise ValueError("mhc: corrupt container (unit count)")
-    n_words = int(meta.byte_lengths.sum()) // 4
-    words = np.frombuffer(blob, dtype=">u4", count=n_words,
-                          offset=meta.payload_off).astype(np.uint32)
+    aligned = bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD)
+    total = int(meta.byte_lengths.sum())
+    if aligned:
+        words = np.frombuffer(blob, dtype=">u4", count=total // 4,
+                              offset=meta.payload_off).astype(np.uint32)
+        payload = torch.from_numpy(words.view(np.int32))
+    else:
+        payload = torch.from_numpy(np.frombuffer(
+            blob, dtype=np.uint8, count=total,
+            offset=meta.payload_off).copy())
     enc = engine.EncodeResult(
         mode=model.name, block_size=meta.block_size, decode_unit=du,
         orig_len=meta.orig_len, n_units=R, lengths=meta.lengths,
-        byte_lens=meta.byte_lengths, bit_lens=None,
-        payload=torch.from_numpy(words.view(np.int32)).to(
-            resolve_device(device)),
-        raw_units=bool(meta.flags & container.FLAG_RAW_UNITS))
+        byte_lens=meta.byte_lengths, bit_lens=None, payload=payload.to(dev),
+        raw_units=bool(meta.flags & container.FLAG_RAW_UNITS),
+        aligned=aligned)
     data = engine.fetch_bytes(enc, engine.decode(enc))
     if verify:
         container.verify_crc(data, meta)

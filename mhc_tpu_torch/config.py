@@ -2,10 +2,12 @@
 
 The reference's performance knobs (`mhc_tpu/config.py`: pack, lookup,
 histogram and decode variants, chunk sizes) chose between TPU kernel
-variants; the port has one kernel per contract, so none of them exists
-here. Callers pass `device` explicitly to `stage`, `compress` and
-`decompress`; None means the first CUDA card when there is one, else
-the CPU (where every kernel runs as its plain PyTorch version).
+variants; the port has one kernel per contract, and the one choice a
+caller makes, `pack_method`, is a parameter of `compress` and
+`engine.encode`. Callers pass `device` to `stage`, `compress` and
+`decompress`; None means the first CUDA card, and raises when there is
+none. The CPU, where every kernel runs as its plain PyTorch version, is
+used only when the caller names it.
 """
 
 from __future__ import annotations
@@ -15,5 +17,10 @@ import torch
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "mhc_tpu_torch: device=None means the first CUDA card, but "
+                "torch.cuda.is_available() is false; pass device='cpu' to "
+                "run the plain PyTorch versions on the CPU")
+        return torch.device("cuda")
     return torch.device(device)

@@ -23,3 +23,74 @@ __device__ __forceinline__ int64_t mhc_clamp(int64_t v, int64_t lo,
                                              int64_t hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
+
+// ---------------------------------------------------------------------------
+// The (prev, cur) code table in shared memory, as K3 and K5 read it:
+// u16 canonical code + u8 length per pair, 192 KB.
+// ---------------------------------------------------------------------------
+
+constexpr int kPairs = 256 * 256;
+constexpr int kClTableSmem = kPairs * (sizeof(uint16_t) + sizeof(uint8_t));
+
+struct ClTable {
+  uint16_t* code;
+  uint8_t* len;
+
+  // Carve the table out of `smem` and fill it from global memory with
+  // 16-byte copies; the caller syncs the block afterwards.
+  __device__ static ClTable load(unsigned char* smem,
+                                 const uint16_t* __restrict__ codes16,
+                                 const uint8_t* __restrict__ lens8) {
+    ClTable t{reinterpret_cast<uint16_t*>(smem),
+              smem + kPairs * sizeof(uint16_t)};
+    const uint4* gc = reinterpret_cast<const uint4*>(codes16);
+    const uint4* gl = reinterpret_cast<const uint4*>(lens8);
+    uint4* sc = reinterpret_cast<uint4*>(t.code);
+    uint4* sl = reinterpret_cast<uint4*>(t.len);
+    for (int i = threadIdx.x; i < kPairs * 2 / 16; i += blockDim.x)
+      sc[i] = gc[i];
+    for (int i = threadIdx.x; i < kPairs / 16; i += blockDim.x)
+      sl[i] = gl[i];
+    return t;
+  }
+
+  // cl = len << 16 | code of the pair (prev, cur); len <= 15, code < 2^15.
+  __device__ __forceinline__ uint32_t cl(int prev, int cur) const {
+    const int idx = (prev << 8) | cur;
+    return ((uint32_t)len[idx] << 16) | code[idx];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// MSB-first bit packer of one unit stream, as K3 and K4 write it: codes
+// are concatenated from bit 31 of word 0; each full word is stored as it
+// completes, the partial tail word by finish(). Rows arrive zeroed, so
+// words past the stream stay 0; writes at index >= W are dropped.
+// ---------------------------------------------------------------------------
+
+struct BitPacker {
+  uint32_t* out;
+  int64_t W;
+  uint64_t acc = 0;   // low `nacc` bits are pending, MSB first
+  int nacc = 0;
+  int64_t wi = 0;
+  int32_t total = 0;
+
+  __device__ __forceinline__ void put(uint32_t cl) {
+    const int len = (int)(cl >> 16);
+    acc = (acc << len) | (cl & 0xFFFFu);
+    nacc += len;
+    total += len;
+    if (nacc >= 32) {
+      nacc -= 32;
+      if (wi < W) out[wi] = (uint32_t)(acc >> nacc);
+      ++wi;
+    }
+  }
+
+  // Stores the tail word; returns the stream's bit count.
+  __device__ __forceinline__ int32_t finish() {
+    if (nacc > 0 && wi < W) out[wi] = (uint32_t)(acc << (32 - nacc));
+    return total;
+  }
+};

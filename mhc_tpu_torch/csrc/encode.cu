@@ -1,7 +1,12 @@
-// K3 — fused (prev, cur) -> (code, len) lookup and MSB-first bit packing,
-// one unit stream per thread.
+// The encode kernels: K3 (fused lookup + pack), and the split form of the
+// same contract, K5 (lookup to a cl plane) followed by K4 (pack of a cl
+// plane). A "cl plane" holds len << 16 | code for every symbol.
 //
-// Replaces mhc_tpu/ops/kernels/encode_pallas.py::pack_blocks_fused_sm
+// K3 and K5 read the (prev, cur) table through the same ClTable, and K3
+// and K4 write through the same BitPacker (common.cuh), so K3 equals K5
+// followed by K4 word for word by construction.
+//
+// K3 replaces mhc_tpu/ops/kernels/encode_pallas.py::pack_blocks_fused_sm
 // (pallas_call at :711, body _fused_kernel :545). The TPU kernel reads
 // step-major symbols and fetches codes with one-hot MXU contractions over
 // rank tables, because Mosaic has no per-lane gather; on Hopper the
@@ -15,21 +20,42 @@
 // Equal word for word to bitpack.encode_blocks_merge and to the TPU
 // kernel.
 //
-// Bound: a serial bit chain per unit. With one thread per unit, the main
-// path's 12,800 units give ~97 threads per SM of the H100's 132: latency
-// of the per-symbol chain (byte load, shared-memory lookup, shift), not
-// bandwidth, bounds it. Spreading a unit over several threads (lengths,
-// prefix sum, placement) is the known next step.
+// Bound: a serial bit chain per unit, one unit per thread in blocks of
+// 128, and the 192 KB table allows one block per SM. The Markov main
+// path's 12,800 units make 100 blocks (100 of the H100's 132 SMs busy,
+// 4 warps each), the order-0 path's 6,400 units make 50 (82 SMs idle):
+// latency of the per-symbol chain (byte load, shared-memory lookup,
+// shift) on few SMs, not bandwidth, bounds it. Filling the SMs (smaller
+// blocks need the table once per SM, so several threads per unit:
+// lengths, prefix sum, placement) is the known next step.
+//
+// K5 replaces mhc_tpu/ops/kernels/lookup_pallas.py::lookup_cl_sm_pallas
+// (pallas_call at :278, body _lookup_kernel). The TPU kernel is
+// step-major, a Mosaic layout constraint; here the plane is unit-major,
+// (R, n) like the units. One thread per 4 symbols, neighbouring threads
+// on neighbouring symbols: a 4-byte load in and a 16-byte store out per
+// thread. It reads 1 byte and writes 4 per symbol (500 MB at the 100 MB
+// main path), so device-memory bandwidth bounds it. The 192 KB table
+// allows one block per SM: 1,024 threads, one persistent block per SM.
+//
+// K4 replaces mhc_tpu/ops/kernels/encode_pallas.py::pack_blocks_dense
+// (pallas_call at :291, body _pack_dense_kernel), whose lane window and
+// group flushes exist because a TPU lane cannot store to its own
+// address. Here one thread packs one unit's cl row with the BitPacker,
+// in blocks of 128 (100 blocks at the Markov main path: at least 32 of
+// 132 SMs get none). Neighbouring threads read rows n * 4 bytes apart, so its
+// loads are not coalesced (each thread reads its row 16 bytes at a
+// time): with the idle SMs, the first thing a faster K4 changes; the
+// serial bit chain is as in K3.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kPairs = 256 * 256;
-constexpr int kSmem = kPairs * (sizeof(uint16_t) + sizeof(uint8_t));
+constexpr int kPackThreads = 128;
+constexpr int kLookupThreads = 1024;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPackThreads)
 pack_units_kernel(const uint8_t* __restrict__ units,
                   const int32_t* __restrict__ n_valid, int64_t R, int64_t n,
                   const uint16_t* __restrict__ codes16,
@@ -37,47 +63,88 @@ pack_units_kernel(const uint8_t* __restrict__ units,
                   uint32_t* __restrict__ words, int64_t W,
                   int32_t* __restrict__ bits) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* s_code = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* s_len = smem + kPairs * sizeof(uint16_t);
-  {
-    const uint4* gc = reinterpret_cast<const uint4*>(codes16);
-    const uint4* gl = reinterpret_cast<const uint4*>(lens8);
-    uint4* sc = reinterpret_cast<uint4*>(s_code);
-    uint4* sl = reinterpret_cast<uint4*>(s_len);
-    for (int i = threadIdx.x; i < kPairs * 2 / 16; i += blockDim.x)
-      sc[i] = gc[i];
-    for (int i = threadIdx.x; i < kPairs / 16; i += blockDim.x)
-      sl[i] = gl[i];
-  }
+  const ClTable tab = ClTable::load(smem, codes16, lens8);
   __syncthreads();
 
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= R) return;
   const int64_t nv = mhc_clamp(n_valid[b], 0, n);
   const uint8_t* row = units + b * n;
-  uint32_t* out = words + b * W;
-
-  uint64_t acc = 0;    // low `nacc` bits are pending, MSB first
-  int nacc = 0;
-  int64_t wi = 0;
-  int32_t total = 0;
+  BitPacker pk{words + b * W, W};
   int prev = 0;
   for (int64_t j = 0; j < nv; ++j) {
     const int cur = __ldg(row + j);
-    const int idx = (prev << 8) | cur;
-    const int len = s_len[idx];
-    acc = (acc << len) | s_code[idx];
-    nacc += len;
-    total += len;
-    if (nacc >= 32) {
-      nacc -= 32;
-      if (wi < W) out[wi] = (uint32_t)(acc >> nacc);
-      ++wi;
-    }
+    pk.put(tab.cl(prev, cur));
     prev = cur;
   }
-  if (nacc > 0 && wi < W) out[wi] = (uint32_t)(acc << (32 - nacc));
-  bits[b] = total;
+  bits[b] = pk.finish();
+}
+
+// vec: n % 4 == 0, units 4-byte and cl 16-byte aligned (checked by the
+// host), so each group of 4 symbols is one u32 load and one 16-byte store.
+__global__ void __launch_bounds__(kLookupThreads)
+lookup_cl_kernel(const uint8_t* __restrict__ units,
+                 const int32_t* __restrict__ n_valid, int64_t R, int64_t n,
+                 const uint16_t* __restrict__ codes16,
+                 const uint8_t* __restrict__ lens8,
+                 uint32_t* __restrict__ cl, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ClTable tab = ClTable::load(smem, codes16, lens8);
+  __syncthreads();
+
+  const int64_t n4 = (n + 3) / 4;
+  const int64_t groups = R * n4;
+  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       g < groups; g += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t b = g / n4;
+    const int64_t j0 = (g - b * n4) * 4;
+    const int64_t nv = mhc_clamp(__ldg(n_valid + b), 0, n);
+    const uint8_t* row = units + b * n;
+    uint32_t* orow = cl + b * n;
+    int prev = j0 ? __ldg(row + j0 - 1) : 0;
+    if (vec) {
+      const uint32_t four = __ldg(reinterpret_cast<const uint32_t*>(row + j0));
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int cur = (four >> (8 * k)) & 0xFF;
+        v[k] = j0 + k < nv ? tab.cl(prev, cur) : 0u;
+        prev = cur;
+      }
+      *reinterpret_cast<uint4*>(orow + j0) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+      for (int64_t j = j0; j < j0 + 4 && j < n; ++j) {
+        const int cur = __ldg(row + j);
+        orow[j] = j < nv ? tab.cl(prev, cur) : 0u;
+        prev = cur;
+      }
+    }
+  }
+}
+
+// vec: n % 4 == 0 and cl 16-byte aligned, so a row is read 16 bytes at a
+// time.
+__global__ void __launch_bounds__(kPackThreads)
+pack_cl_kernel(const uint32_t* __restrict__ cl, int64_t R, int64_t n,
+               uint32_t* __restrict__ words, int64_t W,
+               int32_t* __restrict__ bits, bool vec) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= R) return;
+  const uint32_t* row = cl + b * n;
+  BitPacker pk{words + b * W, W};
+  if (vec) {
+    const uint4* row4 = reinterpret_cast<const uint4*>(row);
+    for (int64_t q = 0; q < n / 4; ++q) {
+      const uint4 v = __ldg(row4 + q);
+      pk.put(v.x);
+      pk.put(v.y);
+      pk.put(v.z);
+      pk.put(v.w);
+    }
+  } else {
+    for (int64_t j = 0; j < n; ++j) pk.put(__ldg(row + j));
+  }
+  bits[b] = pk.finish();
 }
 
 }  // namespace
@@ -90,9 +157,42 @@ extern "C" int mhc_pack_units(const uint8_t* units, const int32_t* n_valid,
                               int64_t W, int32_t* bits,
                               cudaStream_t stream) {
   cudaFuncSetAttribute(pack_units_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  const unsigned blocks = (unsigned)((R + kThreads - 1) / kThreads);
-  pack_units_kernel<<<blocks, kThreads, kSmem, stream>>>(
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kClTableSmem);
+  const unsigned blocks = (unsigned)((R + kPackThreads - 1) / kPackThreads);
+  pack_units_kernel<<<blocks, kPackThreads, kClTableSmem, stream>>>(
       units, n_valid, R, n, codes16, lens8, words, W, bits);
+  return (int)cudaGetLastError();
+}
+
+// cl: (R, n) uint32, every element written.
+extern "C" int mhc_lookup_cl(const uint8_t* units, const int32_t* n_valid,
+                             int64_t R, int64_t n, const uint16_t* codes16,
+                             const uint8_t* lens8, uint32_t* cl,
+                             cudaStream_t stream) {
+  cudaFuncSetAttribute(lookup_cl_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kClTableSmem);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(units) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(cl) % 16 == 0;
+  const int64_t groups = R * ((n + 3) / 4);
+  const int64_t blocks = std::max<int64_t>(
+      1, std::min<int64_t>(mhc_num_sms(),
+                           (groups + kLookupThreads - 1) / kLookupThreads));
+  lookup_cl_kernel<<<(unsigned)blocks, kLookupThreads, kClTableSmem,
+                     stream>>>(units, n_valid, R, n, codes16, lens8, cl, vec);
+  return (int)cudaGetLastError();
+}
+
+// cl: (R, n) uint32; words: (R, W) uint32, zeroed by the caller; bits:
+// (R,) int32.
+extern "C" int mhc_pack_cl(const uint32_t* cl, int64_t R, int64_t n,
+                           uint32_t* words, int64_t W, int32_t* bits,
+                           cudaStream_t stream) {
+  const bool vec =
+      n % 4 == 0 && reinterpret_cast<uintptr_t>(cl) % 16 == 0;
+  const unsigned blocks = (unsigned)((R + kPackThreads - 1) / kPackThreads);
+  pack_cl_kernel<<<blocks, kPackThreads, 0, stream>>>(cl, R, n, words, W,
+                                                       bits, vec);
   return (int)cudaGetLastError();
 }

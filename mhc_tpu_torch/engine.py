@@ -2,18 +2,22 @@
 
 Counterpart of `mhc_tpu/engine.py`. Input units, the compressed payload
 and the decoded output all live in device memory; the only host traffic
-is the (256, 256) counts, the uint8 code-length header and the per-unit
-length index. The engine launches once over all units: the reference's
-16 MB chunk loop bounded TPU VMEM and compile size, which a GPU does not
-need.
+is the counts, the uint8 code-length header and the per-unit length
+index. The engine launches once over all units: the reference's 16 MB
+chunk loop bounded TPU VMEM and compile size, which a GPU does not need.
 
-Main path (Markov):
-  encode: histogram (K1) -> host table build -> canonical tables ->
-          fused lookup+pack (K3) -> literal substitution -> compaction
-  decode: expansion -> decode (K7, literal units skipped) -> literal
-          overwrite
-`assemble_container()` turns an EncodeResult into the container bytes
-that `mhc_tpu.api.compress` writes for the same input.
+Paths, Markov and order-0 alike:
+  encode: histogram (K1 Markov, K2 order-0) -> host table build ->
+          canonical tables -> lookup+pack -> literal substitution ->
+          compaction, where lookup+pack is
+            pack_method="fused" (default): K3;
+            pack_method="dense": K5 (cl plane) then K4 (pack)
+  decode: expansion -> decode (K7m Markov, K7o order-0; literal units
+          skipped) -> literal overwrite
+The engine payload is word-aligned in both modes, as in the reference;
+`fetch_payload` cuts it to the container's byte-aligned order-0 layout
+on the host. `assemble_container()` turns an EncodeResult into the
+container bytes that `mhc_tpu.api.compress` writes for the same input.
 """
 
 from __future__ import annotations
@@ -28,6 +32,16 @@ from .config import resolve_device
 from .models.entropy import get_model
 from .ops import bitpack
 from .ops.kernels import decode_cuda, encode_cuda
+
+# the reference's `pack_method` values the port carries; "pallas" (the
+# bubble-stream packer, K6) becomes the third when K6 is ported
+PACK_METHODS = ("fused", "dense")
+_REJECTED = {
+    "pallas": "the bubble-stream packer K6, still to port (ROADMAP.md, "
+              "\"Still to port\")",
+    "merge": "the XLA merge packer, on ROADMAP.md's \"Do not port\" list",
+    "scatter": "the XLA scatter packer, on ROADMAP.md's \"Do not port\" "
+               "list"}
 
 
 @dataclass
@@ -49,12 +63,17 @@ class EncodeResult:
     decode_unit: int
     orig_len: int
     n_units: int
-    lengths: np.ndarray      # host (256, 256) uint8 code-length header
+    lengths: np.ndarray      # host uint8 code-length header
     byte_lens: np.ndarray    # host (n_units,) int64 container-layout bytes
     bit_lens: np.ndarray | None   # host (n_units,) int64 (None when parsed)
-    payload: torch.Tensor    # (total words,) int32 dense aligned payload
+    # int32 words, the unit streams word-aligned back to back — except for
+    # a parsed unaligned container (bit_lens None, aligned False), whose
+    # payload is its bytes as uint8, as parsed
+    payload: torch.Tensor
     # literal units may be present (the container's FLAG_RAW_UNITS)
     raw_units: bool = True
+    # the container layout is word-aligned (FLAG_ALIGNED_PAYLOAD)
+    aligned: bool = True
 
 
 def stage(data: bytes, mode: str = "markov",
@@ -62,7 +81,6 @@ def stage(data: bytes, mode: str = "markov",
           decode_unit: int | None = None, device=None) -> Staged:
     """Blockify and copy the input to `device`. Not part of codec time."""
     model = get_model(mode)
-    model.require_markov()
     dev = resolve_device(device)
     du = api.resolve_decode_unit(block_size, decode_unit, model.markov)
     units, n_valid = api.blockify(data, du)
@@ -73,23 +91,45 @@ def stage(data: bytes, mode: str = "markov",
 
 
 def histogram(st: Staged) -> np.ndarray:
-    """Device histogram over the staged units, fetched to host (int64)."""
+    """Device histogram over the staged units, fetched to host (int64):
+    (256, 256) for Markov, (256,) for order-0."""
     counts = get_model(st.mode).histogram(st.units, st.n_valid)
     return counts.cpu().numpy().astype(np.int64)
 
 
-def encode(st: Staged, lengths: np.ndarray | None = None) -> EncodeResult:
-    """Histogram -> host table build -> fused lookup+pack -> literal
-    substitution -> dense payload, all but the table build on the
-    device. `lengths` overrides the histogram and table build."""
+def check_pack_method(pack_method: str | None) -> str:
+    """None -> "fused"; raises ValueError for anything but "fused" and
+    "dense"."""
+    pack_method = pack_method or "fused"
+    if pack_method in PACK_METHODS:
+        return pack_method
+    if pack_method in _REJECTED:
+        raise ValueError(
+            f"pack_method {pack_method!r} is {_REJECTED[pack_method]}; "
+            f"the port has {PACK_METHODS}")
+    raise ValueError(f"unknown pack_method {pack_method!r}; expected one "
+                     f"of {PACK_METHODS}")
+
+
+def encode(st: Staged, lengths: np.ndarray | None = None,
+           pack_method: str | None = None) -> EncodeResult:
+    """Histogram -> host table build -> lookup+pack -> literal
+    substitution -> dense word-aligned payload, all but the table build
+    on the device. `lengths` overrides the histogram and table build;
+    `pack_method` is "fused" (None, K3) or "dense" (K5 then K4)."""
+    pack_method = check_pack_method(pack_method)
     model = get_model(st.mode)
     dev = st.units.device
     if lengths is None:
         lengths = model.lengths_from_counts(histogram(st))
     lengths = np.asarray(lengths, dtype=np.uint8)
     tables = model.tables_from_lengths(lengths, dev)
-    words, bits = encode_cuda.pack_units(st.units, st.n_valid,
-                                         tables["codes"], tables["lengths"])
+    tab = (tables["codes"], tables["lengths"])
+    if pack_method == "fused":
+        words, bits = encode_cuda.pack_units(st.units, st.n_valid, *tab)
+    else:            # K5 then K4: the same words and bits as K3
+        words, bits = encode_cuda.pack_cl(
+            encode_cuda.lookup_cl(st.units, st.n_valid, *tab))
     if st.decode_unit != st.block_size:          # substream layout
         words, bits = bitpack.substitute_raw_units(
             words, bits, st.units, st.n_valid,
@@ -101,7 +141,14 @@ def encode(st: Staged, lengths: np.ndarray | None = None) -> EncodeResult:
         mode=st.mode, block_size=st.block_size, decode_unit=st.decode_unit,
         orig_len=st.orig_len, n_units=st.n_units, lengths=lengths,
         byte_lens=container.stream_byte_lens(bit_lens, model.mode),
-        bit_lens=bit_lens, payload=payload)
+        bit_lens=bit_lens, payload=payload,
+        aligned=container.aligned_payload(model.mode))
+
+
+def _offsets(lens: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=out[1:])
+    return out
 
 
 def decode_inputs(enc: EncodeResult):
@@ -113,35 +160,46 @@ def decode_inputs(enc: EncodeResult):
     du = enc.decode_unit
     R = enc.n_units
     tables = model.tables_from_lengths(enc.lengths, dev)
-    word_lens = np.asarray(enc.byte_lens, np.int64) // 4
-    W = int(word_lens.max()) + 1 if R else 1
-    offsets = np.zeros(R, np.int64)
-    np.cumsum(word_lens[:-1], out=offsets[1:])
-    words = bitpack.device_expand_words_u32(
-        enc.payload, torch.from_numpy(offsets).to(dev),
-        torch.from_numpy(word_lens).to(dev), W)
+    byte_lens = np.asarray(enc.byte_lens, np.int64)
+    if enc.bit_lens is None and not enc.aligned:
+        # parsed unaligned container: byte-granular expansion (K12)
+        W = int(-(-byte_lens.max() // 4)) + 1 if R else 1
+        words = bitpack.device_expand_words(
+            enc.payload, torch.from_numpy(_offsets(byte_lens)).to(dev),
+            torch.from_numpy(byte_lens).to(dev), W)
+    else:
+        # word-aligned payload: an engine result knows each unit's words
+        # from its bits; a parsed aligned container stores words * 4
+        word_lens = ((enc.bit_lens + 31) // 32 if enc.bit_lens is not None
+                     else byte_lens // 4).astype(np.int64)
+        W = int(word_lens.max()) + 1 if R else 1
+        words = bitpack.device_expand_words_u32(
+            enc.payload, torch.from_numpy(_offsets(word_lens)).to(dev),
+            torch.from_numpy(word_lens).to(dev), W)
     nv = np.full(R, du, np.int64)
     if R:
         nv[-1] = enc.orig_len - (R - 1) * du
     raw = np.zeros(R, bool)
     if enc.raw_units and du != enc.block_size:
         # literal detection follows the CONTAINER layout (the rule the
-        # encoder's substitution applies)
-        raw = bitpack.raw_unit_mask(enc.byte_lens, nv,
-                                    container.aligned_payload(model.mode))
+        # encoder's substitution applies), never the engine's word counts:
+        # an order-0 unit whose coded bytes fall short of its length can
+        # still round up to the literal's word count
+        raw = bitpack.raw_unit_mask(byte_lens, nv, enc.aligned)
     n_dec = torch.from_numpy(np.where(raw, 0, nv).astype(np.int32)).to(dev)
     return words, n_dec, raw, tables
 
 
 def decode(enc: EncodeResult) -> torch.Tensor:
-    """Expansion -> decode (K7) -> literal overwrite. Returns the
+    """Expansion -> decode (K7m or K7o, literal units skipped) -> literal
+    overwrite. Returns the
     (n_units, decode_unit) uint8 rows on the payload's device, zero past
     each unit's length (fetch_bytes trims)."""
     du = enc.decode_unit
     words, n_dec, raw, tables = decode_inputs(enc)
     out = decode_cuda.decode_units(
         words, n_dec, tables["lim"], tables["base"], tables["first_code"],
-        tables["sorted_syms"], n_out=du)
+        tables["sorted_syms"], n_out=du, markov=get_model(enc.mode).markov)
     if raw.any():
         raw_d = torch.from_numpy(raw).to(words.device)
         out = torch.where(raw_d[:, None],
@@ -155,9 +213,16 @@ def fetch_bytes(enc: EncodeResult, out: torch.Tensor) -> bytes:
 
 
 def fetch_payload(enc: EncodeResult) -> bytes:
-    """Dense container payload bytes (host): big-endian words. Not codec
-    time."""
-    return enc.payload.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    """Dense container-layout payload bytes (host): big-endian words,
+    each unit cut to its ceil(bits / 8) bytes where the layout is
+    unaligned (order-0). Not codec time."""
+    raw = enc.payload.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    if enc.aligned:
+        return raw
+    mv = memoryview(raw)
+    starts = 4 * _offsets((enc.bit_lens + 31) // 32)
+    return b"".join(mv[s: s + n] for s, n in
+                    zip(starts.tolist(), enc.byte_lens.tolist()))
 
 
 def assemble_container(enc: EncodeResult, data_crc: int | None) -> bytes:

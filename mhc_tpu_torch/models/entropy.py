@@ -1,10 +1,11 @@
-"""Entropy models: first-order Markov-Huffman (and order-0, declared).
+"""Entropy models: order-0 Huffman and first-order Markov-Huffman.
 
 Counterpart of `mhc_tpu/models/entropy.py`. A model owns the statistics
 pass over a unit batch and the shape of its code tables; tables use the
-unified [prev, cur] layout so the kernels are mode-agnostic. Order-0 is
-declared so containers of both modes parse, but coding it is not ported
-yet.
+unified [prev, cur] layout so the kernels are mode-agnostic. Order-0
+repeats its single table across the 256 context rows, materialised:
+the kernels read their tables through raw pointers, where a stride-0
+view would read row 0's neighbours as garbage.
 """
 
 from __future__ import annotations
@@ -17,8 +18,6 @@ import torch
 from .. import container
 from ..ops import canonical, histogram, huffman
 
-_ORDER0_TODO = "order-0 is ROADMAP item 7"
-
 
 @dataclass(frozen=True)
 class EntropyModel:
@@ -26,30 +25,31 @@ class EntropyModel:
     mode: int          # container mode id
     markov: bool
 
-    def require_markov(self) -> None:
-        if not self.markov:
-            raise NotImplementedError(_ORDER0_TODO)
-
     def histogram(self, units: torch.Tensor,
                   n_valid: torch.Tensor) -> torch.Tensor:
-        """(256, 256) int32 [prev, cur] counts on the units' device."""
-        self.require_markov()
-        return histogram.histogram_markov(units, n_valid)
+        """int32 counts on the units' device: (256, 256) [prev, cur] for
+        Markov, (256,) for order-0."""
+        if self.markov:
+            return histogram.histogram_markov(units, n_valid)
+        return histogram.histogram_order0(units, n_valid)
 
     def lengths_from_counts(self, counts: np.ndarray) -> np.ndarray:
-        """Deterministic (256, 256) uint8 code lengths from host counts:
-        the native C++ builder, or its bit-identical numpy twin where the
-        library cannot be built."""
-        self.require_markov()
+        """Deterministic uint8 code lengths of the counts' shape ((256,
+        256) or (256,)) from host counts: the native C++ builder, or its
+        bit-identical numpy twin where the library cannot be built."""
         from ..utils import native
         scaled = huffman.rescale_counts(np.asarray(counts))
         return native.code_lengths(scaled, huffman.MAX_CODE_LEN)
 
     def tables_from_lengths(self, lengths, device) -> dict:
-        """Full encode+decode table set on `device`, (256, ...) layout."""
-        self.require_markov()
-        return canonical.canonical_codes(
+        """Full encode+decode table set on `device`, (256, ...) layout,
+        every table contiguous."""
+        t = canonical.canonical_codes(
             torch.as_tensor(np.asarray(lengths, np.int64), device=device))
+        if self.markov:
+            return t
+        return {k: v.expand(256, v.shape[-1]).contiguous()
+                for k, v in t.items()}
 
 
 def tables_from_numpy(tables_np: dict, device) -> dict:

@@ -1,9 +1,10 @@
 """Unit-stream layout helpers around the kernels, in plain torch.
 
 Counterpart of the XLA (non-Pallas) parts of `mhc_tpu/ops/bitpack.py`
-that the Markov main path runs: the worst-case stream width, literal
-units, and the dense aligned payload's compaction and expansion. The
-kernels themselves live in `ops/kernels/`.
+that the main paths run: the worst-case stream width, literal units, the
+dense aligned payload's compaction and expansion, and the byte-granular
+expansion of an unaligned container payload. The kernels themselves
+live in `ops/kernels/`.
 
 Words are kept as torch.int32 bit patterns: torch's uint32 lacks shifts
 and many CPU ops. Bit order is MSB-first within each 32-bit word, and
@@ -125,3 +126,21 @@ def device_expand_words_u32(payload: torch.Tensor,
     ok = iw[None, :] < word_lens.to(dev)[:, None]
     return torch.where(ok, val, torch.zeros((), dtype=torch.int32,
                                               device=dev))
+
+
+def device_expand_words(payload: torch.Tensor, byte_offsets: torch.Tensor,
+                        byte_lens: torch.Tensor, W: int) -> torch.Tensor:
+    """Byte-granular expansion (unaligned container layout): (T,) uint8
+    payload + (R,) byte offsets and lengths -> (R, W) int32 zero-padded
+    big-endian word streams."""
+    R = byte_lens.shape[0]
+    dev = payload.device
+    T = payload.shape[0]
+    if T == 0 or R == 0:
+        return torch.zeros((R, W), dtype=torch.int32, device=dev)
+    ib = torch.arange(4 * W, device=dev)
+    idx = byte_offsets.to(dev).long()[:, None] + ib[None, :]
+    ok = ib[None, :] < byte_lens.to(dev)[:, None]
+    b = torch.where(ok, payload[idx.clamp(0, T - 1)],
+                    torch.zeros((), dtype=torch.uint8, device=dev))
+    return _be_words(b)

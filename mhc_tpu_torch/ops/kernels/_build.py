@@ -9,11 +9,13 @@ machines without nvcc.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()` as an int; `check` turns a non-zero code into an
-exception with CUDA's own message.
+exception with CUDA's own message, and `launched` counts the launch in
+`LAUNCHES`, so a run can show which kernels its path went through.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import os
@@ -29,6 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}
+
+# Kernel launches by kernel name since the last `LAUNCHES.clear()`. Each
+# wrapper counts here where it launches its kernel, and nowhere else.
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -88,6 +94,12 @@ def check(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.mhc_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def launched(lib, rc: int, kernel: str) -> None:
+    """`check` a launch's return code, then count the launch."""
+    check(lib, rc, f"{kernel} launch")
+    LAUNCHES[kernel] += 1
 
 
 def stream_ptr(device) -> int:

@@ -1,10 +1,12 @@
-"""K7 — canonical Markov decode: CUDA wrapper + plain version.
+"""K7 — canonical Huffman decode, Markov (K7m) and order-0 (K7o): CUDA
+wrapper + plain version.
 
 Kernel: csrc/decode.cu (sm_90a), which replaces
-mhc_tpu/ops/kernels/decode_pallas.py::decode_blocks_pallas (Markov
-call). One thread per unit stream with all decode tables in shared
-memory; bounded by the latency of each unit's serial symbol chain (see
-the source note).
+mhc_tpu/ops/kernels/decode_pallas.py::decode_blocks_pallas, both its
+Markov and its order-0 call. One thread per unit stream with the decode
+tables in shared memory (every context's for Markov, context 0's alone
+for order-0); bounded by the latency of each unit's serial symbol chain
+(see the source note).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from . import _build
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p]
 _L = MAX_CODE_LEN + 1
 
 
@@ -41,9 +43,10 @@ def _check(words, n_valid, lim, base, first_code, sorted_syms) -> str:
 
 
 def decode_units_plain(words, n_valid, lim, base, first_code, sorted_syms,
-                       n_out: int) -> torch.Tensor:
+                       n_out: int, markov: bool = True) -> torch.Tensor:
     """`mhc_tpu.ops.bitpack.decode_blocks` in torch: a Python loop over
-    the symbol steps, vectorised over units. Words past W read as 0."""
+    the symbol steps, vectorised over units. Words past W read as 0; with
+    markov=False the context stays 0."""
     R, W = words.shape
     dev = words.device
     w64 = torch.zeros((R, W + 2), dtype=torch.long, device=dev)
@@ -69,7 +72,8 @@ def decode_units_plain(words, n_valid, lim, base, first_code, sorted_syms,
         sym = ss[ctx, (bf[ctx, length] + code).clamp(0, 255)]
         valid = t < nv
         bitpos += torch.where(valid, length, 0)
-        ctx = torch.where(valid, sym, ctx)
+        if markov:
+            ctx = torch.where(valid, sym, ctx)
         out[:, t] = torch.where(valid, sym, 0).to(torch.uint8)
     return out
 
@@ -77,13 +81,15 @@ def decode_units_plain(words, n_valid, lim, base, first_code, sorted_syms,
 def decode_units(words: torch.Tensor, n_valid: torch.Tensor,
                  lim: torch.Tensor, base: torch.Tensor,
                  first_code: torch.Tensor, sorted_syms: torch.Tensor,
-                 n_out: int) -> torch.Tensor:
+                 n_out: int, markov: bool = True) -> torch.Tensor:
     """(R, W) int32 MSB-first streams, (R,) int32 symbol counts and the
-    canonical decode tables -> (R, n_out) uint8, zero past n_valid. CPU
-    tensors take the plain version; CUDA tensors launch K7."""
+    canonical decode tables -> (R, n_out) uint8, zero past n_valid; the
+    context is the previous symbol (markov) or 0 throughout (order-0,
+    which reads only row 0 of each table). CPU tensors take the plain
+    version; CUDA tensors launch K7m or K7o."""
     if _check(words, n_valid, lim, base, first_code, sorted_syms) == "cpu":
         return decode_units_plain(words, n_valid, lim, base, first_code,
-                                  sorted_syms, n_out)
+                                  sorted_syms, n_out, markov)
     lib, fn = _build.load("decode", "mhc_decode_units", _ARGTYPES)
     R, W = words.shape
     dev = words.device
@@ -95,10 +101,7 @@ def decode_units(words: torch.Tensor, n_valid: torch.Tensor,
     syms8 = sorted_syms.to(torch.uint8).contiguous()
     rc = fn(words.data_ptr(), R, W, n_valid.data_ptr(), lim_c.data_ptr(),
             bf.data_ptr(), syms8.data_ptr(), out.data_ptr(), n_out,
-            _build.stream_ptr(dev))
-    _build.check(lib, rc, "decode_units launch")
-    decode_units.launches += 1
+            int(markov), _build.stream_ptr(dev))
+    _build.launched(lib, rc,
+                    "decode_units" if markov else "decode_units_order0")
     return out
-
-
-decode_units.launches = 0

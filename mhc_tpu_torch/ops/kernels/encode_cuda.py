@@ -1,10 +1,18 @@
-"""K3 — fused (prev, cur) lookup + MSB-first pack: CUDA wrapper + plain
-version.
+"""The encode kernels: CUDA wrappers + plain versions.
 
-Kernel: csrc/encode.cu (sm_90a), which replaces
-mhc_tpu/ops/kernels/encode_pallas.py::pack_blocks_fused_sm. One thread
-per unit with the canonical tables in shared memory; bounded by the
-latency of each unit's serial bit chain (see the source note).
+- K3 `pack_units`: fused (prev, cur) lookup + MSB-first pack; replaces
+  mhc_tpu/ops/kernels/encode_pallas.py::pack_blocks_fused_sm.
+- K5 `lookup_cl`: the cl plane (len << 16 | code per symbol, 0 past
+  n_valid); replaces mhc_tpu/ops/kernels/lookup_pallas.py::
+  lookup_cl_sm_pallas, unit-major here.
+- K4 `pack_cl`: MSB-first pack of a cl plane; replaces
+  encode_pallas.py::pack_blocks_dense.
+
+All three live in csrc/encode.cu (sm_90a) and share its table read and
+bit packer, so K4(K5(x)) equals K3(x) word for word; the plain versions
+are composed the same way. K3 and K4 run one thread per unit, bounded by
+each unit's serial bit chain; K5 is bounded by device-memory bandwidth
+(see the source note).
 """
 
 from __future__ import annotations
@@ -16,10 +24,11 @@ import torch
 from ..bitpack import words_for_block
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-             ctypes.c_void_p]
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+_PACK_ARGTYPES = [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P]
+_LOOKUP_ARGTYPES = [_P, _P, _I, _I, _P, _P, _P, _P]
+_PACK_CL_ARGTYPES = [_P, _I, _I, _P, _I, _P, _P]
 
 
 def _check(units, n_valid, codes, lengths) -> str:
@@ -36,27 +45,51 @@ def _check(units, n_valid, codes, lengths) -> str:
     return dev
 
 
+def _check_cl(cl) -> str:
+    dev = _build.require_cuda_or_cpu(cl)
+    if cl.dtype != torch.int32 or cl.dim() != 2 or not cl.is_contiguous():
+        raise ValueError("cl must be a contiguous (R, n) int32 tensor")
+    return dev
+
+
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2**32) -> int32 bit patterns."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def pack_units_plain(units, n_valid, codes, lengths):
+def _tables(codes, lengths):
+    """The kernels' table layout: u16 codes (< 2**15) and u8 lengths."""
+    return (codes.to(torch.int16).contiguous(),
+            lengths.to(torch.uint8).contiguous())
+
+
+def lookup_cl_plain(units, n_valid, codes, lengths) -> torch.Tensor:
+    """(R, n) int32 cl = lengths[prev, cur] << 16 | codes[prev, cur],
+    prev the unit's previous byte (0 at j = 0), 0 past n_valid."""
+    u = units.long()
+    R, n = u.shape
+    dev = u.device
+    prev = torch.cat([torch.zeros((R, 1), dtype=torch.long, device=dev),
+                      u[:, :-1]], dim=1)
+    idx = prev * 256 + u
+    cl = ((lengths.reshape(-1).long()[idx] << 16)
+          | codes.reshape(-1).long()[idx])
+    valid = (torch.arange(n, device=dev)[None, :]
+             < n_valid.to(dev)[:, None])
+    return torch.where(valid, cl, 0).to(torch.int32)
+
+
+def pack_cl_plain(cl: torch.Tensor):
     """Scatter-add form of `mhc_tpu.ops.bitpack.encode_blocks`: every
     symbol's bit offset from an exclusive prefix sum of its length; each
     code straddles at most two words, and disjoint bit ranges make add
     equal or."""
-    u = units.long()
-    R, n = u.shape
-    dev = u.device
+    R, n = cl.shape
+    dev = cl.device
     W = words_for_block(n)
-    prev = torch.cat([torch.zeros((R, 1), dtype=torch.long, device=dev),
-                      u[:, :-1]], dim=1)
-    idx = prev * 256 + u
-    valid = (torch.arange(n, device=dev)[None, :]
-             < n_valid.to(dev)[:, None])
-    lens = torch.where(valid, lengths.reshape(-1).long()[idx], 0)
-    cds = torch.where(valid, codes.reshape(-1).long()[idx], 0)
+    c = cl.long()
+    lens = c >> 16
+    cds = c & 0xFFFF
     offs = torch.cumsum(lens, dim=1) - lens
     total = offs[:, -1] + lens[:, -1]
     left = 32 - (offs & 31) - lens                  # in [-14, 32]
@@ -71,6 +104,11 @@ def pack_units_plain(units, n_valid, codes, lengths):
     return _to_i32(words[:, :W]), total.to(torch.int32)
 
 
+def pack_units_plain(units, n_valid, codes, lengths):
+    """K3's contract as K5 then K4, in plain torch."""
+    return pack_cl_plain(lookup_cl_plain(units, n_valid, codes, lengths))
+
+
 def pack_units(units: torch.Tensor, n_valid: torch.Tensor,
                codes: torch.Tensor, lengths: torch.Tensor):
     """(R, n) uint8 units, (R,) int32 n_valid, (256, 256) int32 canonical
@@ -79,7 +117,7 @@ def pack_units(units: torch.Tensor, n_valid: torch.Tensor,
     the plain version; CUDA tensors launch K3."""
     if _check(units, n_valid, codes, lengths) == "cpu":
         return pack_units_plain(units, n_valid, codes, lengths)
-    lib, fn = _build.load("encode", "mhc_pack_units", _ARGTYPES)
+    lib, fn = _build.load("encode", "mhc_pack_units", _PACK_ARGTYPES)
     R, n = units.shape
     W = words_for_block(n)
     dev = units.device
@@ -87,14 +125,49 @@ def pack_units(units: torch.Tensor, n_valid: torch.Tensor,
     bits = torch.empty((R,), dtype=torch.int32, device=dev)
     if R == 0:
         return words, bits
-    codes16 = codes.to(torch.int16).contiguous()    # codes < 2**15
-    lens8 = lengths.to(torch.uint8).contiguous()
+    codes16, lens8 = _tables(codes, lengths)
     rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, codes16.data_ptr(),
             lens8.data_ptr(), words.data_ptr(), W, bits.data_ptr(),
             _build.stream_ptr(dev))
-    _build.check(lib, rc, "pack_units launch")
-    pack_units.launches += 1
+    _build.launched(lib, rc, "pack_units")
     return words, bits
 
 
-pack_units.launches = 0
+def lookup_cl(units: torch.Tensor, n_valid: torch.Tensor,
+              codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(R, n) uint8 units, (R,) int32 n_valid, (256, 256) int32 canonical
+    codes and lengths -> (R, n) int32 cl plane, 0 past n_valid. CPU
+    tensors take the plain version; CUDA tensors launch K5."""
+    if _check(units, n_valid, codes, lengths) == "cpu":
+        return lookup_cl_plain(units, n_valid, codes, lengths)
+    lib, fn = _build.load("encode", "mhc_lookup_cl", _LOOKUP_ARGTYPES)
+    R, n = units.shape
+    dev = units.device
+    cl = torch.empty((R, n), dtype=torch.int32, device=dev)
+    if R * n == 0:
+        return cl
+    codes16, lens8 = _tables(codes, lengths)
+    rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, codes16.data_ptr(),
+            lens8.data_ptr(), cl.data_ptr(), _build.stream_ptr(dev))
+    _build.launched(lib, rc, "lookup_cl")
+    return cl
+
+
+def pack_cl(cl: torch.Tensor):
+    """(R, n) int32 cl plane -> (words (R, words_for_block(n)) int32 bit
+    patterns, zero past each stream; bits (R,) int32). CPU tensors take
+    the plain version; CUDA tensors launch K4."""
+    if _check_cl(cl) == "cpu":
+        return pack_cl_plain(cl)
+    lib, fn = _build.load("encode", "mhc_pack_cl", _PACK_CL_ARGTYPES)
+    R, n = cl.shape
+    W = words_for_block(n)
+    dev = cl.device
+    words = torch.zeros((R, W), dtype=torch.int32, device=dev)
+    bits = torch.empty((R,), dtype=torch.int32, device=dev)
+    if R == 0:
+        return words, bits
+    rc = fn(cl.data_ptr(), R, n, words.data_ptr(), W, bits.data_ptr(),
+            _build.stream_ptr(dev))
+    _build.launched(lib, rc, "pack_cl")
+    return words, bits

@@ -1,9 +1,12 @@
-"""K1 — Markov (prev, cur) histogram: CUDA kernel wrapper + plain version.
+"""K1 and K2 — the Markov (prev, cur) and order-0 byte histograms: CUDA
+kernel wrappers + plain versions.
 
-Kernel: csrc/histogram.cu (sm_90a), which replaces
-mhc_tpu/ops/kernels/histogram_pallas.py::markov_hist_pallas. Bounded by
-shared-memory atomics (one per symbol, serialised on skewed data) over
-one read of the input per half of the prev range; see the source note.
+Kernels: csrc/histogram.cu (sm_90a). K1 replaces
+mhc_tpu/ops/kernels/histogram_pallas.py::markov_hist_pallas and is
+bounded by shared-memory atomics (one per symbol, serialised on skewed
+data) over one read of the input per half of the prev range. K2 replaces
+histogram_pallas.py::order0_hist_pallas: per-warp sub-histograms over one
+read of the input. See the source note.
 """
 
 from __future__ import annotations
@@ -29,19 +32,41 @@ def _check(units: torch.Tensor, n_valid: torch.Tensor) -> str:
     return dev
 
 
+def _valid(units: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    return (torch.arange(units.shape[1], device=units.device)[None, :]
+            < n_valid.to(units.device)[:, None])
+
+
 def markov_hist_plain(units: torch.Tensor,
                       n_valid: torch.Tensor) -> torch.Tensor:
     """bincount of prev*256+cur over the valid positions; (256, 256)
     int32."""
     u = units.long()
-    R, n = u.shape
-    prev = torch.cat([torch.zeros((R, 1), dtype=torch.long,
+    prev = torch.cat([torch.zeros((u.shape[0], 1), dtype=torch.long,
                                   device=u.device), u[:, :-1]], dim=1)
-    valid = (torch.arange(n, device=u.device)[None, :]
-             < n_valid.to(u.device)[:, None])
-    pairs = (prev * 256 + u)[valid]
+    pairs = (prev * 256 + u)[_valid(units, n_valid)]
     return torch.bincount(pairs, minlength=65536).to(
         torch.int32).reshape(256, 256)
+
+
+def order0_hist_plain(units: torch.Tensor,
+                      n_valid: torch.Tensor) -> torch.Tensor:
+    """bincount of the valid bytes; (256,) int32."""
+    return torch.bincount(units[_valid(units, n_valid)].long(),
+                          minlength=256).to(torch.int32)
+
+
+def _launch(fn_name: str, kernel: str, units: torch.Tensor,
+            n_valid: torch.Tensor, shape: tuple) -> torch.Tensor:
+    lib, fn = _build.load("histogram", fn_name, _ARGTYPES)
+    out = torch.zeros(shape, dtype=torch.int32, device=units.device)
+    R, n = units.shape
+    if R * n == 0:
+        return out
+    rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, out.data_ptr(),
+            _build.stream_ptr(units.device))
+    _build.launched(lib, rc, kernel)
+    return out
 
 
 def markov_hist(units: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -49,16 +74,13 @@ def markov_hist(units: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     CPU tensors take the plain version; CUDA tensors launch K1."""
     if _check(units, n_valid) == "cpu":
         return markov_hist_plain(units, n_valid)
-    lib, fn = _build.load("histogram", "mhc_markov_hist", _ARGTYPES)
-    out = torch.zeros((256, 256), dtype=torch.int32, device=units.device)
-    R, n = units.shape
-    if R * n == 0:
-        return out
-    rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, out.data_ptr(),
-            _build.stream_ptr(units.device))
-    _build.check(lib, rc, "markov_hist launch")
-    markov_hist.launches += 1
-    return out
+    return _launch("mhc_markov_hist", "markov_hist", units, n_valid,
+                   (256, 256))
 
 
-markov_hist.launches = 0
+def order0_hist(units: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """(R, n) uint8 units, (R,) int32 n_valid -> (256,) int32 counts.
+    CPU tensors take the plain version; CUDA tensors launch K2."""
+    if _check(units, n_valid) == "cpu":
+        return order0_hist_plain(units, n_valid)
+    return _launch("mhc_order0_hist", "order0_hist", units, n_valid, (256,))

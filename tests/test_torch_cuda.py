@@ -12,7 +12,7 @@ import torch
 
 import mhc_tpu_torch
 from mhc_tpu_torch import engine
-from mhc_tpu_torch.models.entropy import MARKOV
+from mhc_tpu_torch.models.entropy import get_model
 from mhc_tpu_torch.ops.kernels import (_build, decode_cuda, encode_cuda,
                                        histogram_cuda)
 
@@ -33,51 +33,103 @@ def _data(n: int, seed: int) -> bytes:
     return np.concatenate([text, noise]).tobytes()
 
 
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
 @pytest.mark.parametrize("n,block,du", [(300_001, 65536, 8192),
                                         (70_000, 8192, 1024),
                                         (5_000, 4096, 4096),
                                         (1_001, 2, 2)])
-def test_kernels_equal_plain_versions(dev, n, block, du):
-    """Units with and without literals, and a decode unit that is not a
-    multiple of 4 (K7's byte-store path)."""
-    st = engine.stage(_data(n, n), block_size=block, decode_unit=du,
-                      device=dev)
+def test_kernels_equal_plain_versions(dev, mode, n, block, du):
+    """Each mode's histogram, K3, K5, K4 and decode kernel against its
+    plain version: units with and without literals, and decode units that
+    are not multiples of 4 (K7's byte-store path, K5's and K4's scalar
+    paths)."""
+    model = get_model(mode)
+    hist, hist_plain = ((histogram_cuda.markov_hist,
+                         histogram_cuda.markov_hist_plain) if model.markov
+                        else (histogram_cuda.order0_hist,
+                              histogram_cuda.order0_hist_plain))
+    st = engine.stage(_data(n, n), mode=mode, block_size=block,
+                      decode_unit=du, device=dev)
     u, nv = st.units, st.n_valid
-    counts = histogram_cuda.markov_hist(u, nv)
-    assert torch.equal(counts, histogram_cuda.markov_hist_plain(u, nv))
-    lengths = MARKOV.lengths_from_counts(counts.cpu().numpy())
-    t = MARKOV.tables_from_lengths(lengths, dev)
-    got = encode_cuda.pack_units(u, nv, t["codes"], t["lengths"])
+    counts = hist(u, nv)
+    assert torch.equal(counts, hist_plain(u, nv))
+    lengths = model.lengths_from_counts(counts.cpu().numpy())
+    t = model.tables_from_lengths(lengths, dev)
+    fused = encode_cuda.pack_units(u, nv, t["codes"], t["lengths"])
     ref = encode_cuda.pack_units_plain(u, nv, t["codes"], t["lengths"])
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(fused, ref))
+    cl = encode_cuda.lookup_cl(u, nv, t["codes"], t["lengths"])
+    assert torch.equal(cl, encode_cuda.lookup_cl_plain(u, nv, t["codes"],
+                                                       t["lengths"]))
+    split = encode_cuda.pack_cl(cl)
+    assert all(torch.equal(a, b) for a, b in zip(split, fused))
+    assert all(torch.equal(a, b)
+               for a, b in zip(split, encode_cuda.pack_cl_plain(cl)))
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     args = (words, n_dec, t["lim"], t["base"], t["first_code"],
             t["sorted_syms"])
-    out = decode_cuda.decode_units(*args, n_out=du)
+    out = decode_cuda.decode_units(*args, n_out=du, markov=model.markov)
     torch.cuda.synchronize()
-    assert torch.equal(out, decode_cuda.decode_units_plain(*args, n_out=du))
+    assert torch.equal(out, decode_cuda.decode_units_plain(
+        *args, n_out=du, markov=model.markov))
     assert engine.fetch_bytes(enc, engine.decode(enc)) == _data(n, n)
 
 
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+@pytest.mark.parametrize("n", [1022, 1021])
+def test_unaligned_widths_equal_plain_versions(dev, mode, n):
+    """Unit widths off the kernels' vector paths (K2: n % 16, K5 and K4:
+    n % 4), on raw unit batches with ragged n_valid."""
+    model = get_model(mode)
+    rng = np.random.default_rng(n)
+    u = torch.from_numpy(np.frombuffer(_data(37 * n, n), np.uint8)
+                         .reshape(37, n).copy()).to(dev)
+    nv = torch.from_numpy(
+        rng.integers(0, n + 1, 37).astype(np.int32)).to(dev)
+    assert torch.equal(histogram_cuda.order0_hist(u, nv),
+                       histogram_cuda.order0_hist_plain(u, nv))
+    counts = model.histogram(u, nv).cpu().numpy()
+    t = model.tables_from_lengths(model.lengths_from_counts(counts), dev)
+    cl = encode_cuda.lookup_cl(u, nv, t["codes"], t["lengths"])
+    assert torch.equal(cl, encode_cuda.lookup_cl_plain(u, nv, t["codes"],
+                                                       t["lengths"]))
+    got = encode_cuda.pack_cl(cl)
+    for a, b, c in zip(got, encode_cuda.pack_cl_plain(cl),
+                       encode_cuda.pack_units(u, nv, t["codes"],
+                                              t["lengths"])):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
 @pytest.mark.parametrize("data", [b"", b"Q", b"QQ", bytes(4096),
-                                  bytes(range(256)) * 16, b"xy" * 65536])
-def test_gpu_container_equals_cpu_container(dev, data):
-    blob = mhc_tpu_torch.compress(data, device=dev)
-    assert blob == mhc_tpu_torch.compress(data, device="cpu")
+                                  bytes(range(256)) * 16, b"xy" * 65536,
+                                  _data(100_003, 7)],
+                         ids=["empty", "1", "2", "zeros", "ramp", "xy",
+                              "mixed"])
+def test_gpu_container_equals_cpu_container(dev, mode, data):
+    blob = mhc_tpu_torch.compress(data, mode=mode, device=dev)
+    assert blob == mhc_tpu_torch.compress(data, mode=mode, device="cpu")
+    assert blob == mhc_tpu_torch.compress(data, mode=mode, device=dev,
+                                          pack_method="dense")
     assert mhc_tpu_torch.decompress(blob, device=dev) == data
 
 
-def test_launch_counters_count_kernel_launches(dev):
-    st = engine.stage(_data(50_000, 1), device=dev)
-    before = (histogram_cuda.markov_hist.launches,
-              encode_cuda.pack_units.launches,
-              decode_cuda.decode_units.launches)
-    engine.decode(engine.encode(st))
-    after = (histogram_cuda.markov_hist.launches,
-             encode_cuda.pack_units.launches,
-             decode_cuda.decode_units.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+@pytest.mark.parametrize("mode,pack_method,expected", [
+    ("markov", "fused", {"markov_hist": 1, "pack_units": 1,
+                         "decode_units": 1}),
+    ("markov", "dense", {"markov_hist": 1, "lookup_cl": 1, "pack_cl": 1,
+                         "decode_units": 1}),
+    ("huffman", "fused", {"order0_hist": 1, "pack_units": 1,
+                          "decode_units_order0": 1}),
+    ("huffman", "dense", {"order0_hist": 1, "lookup_cl": 1, "pack_cl": 1,
+                          "decode_units_order0": 1})])
+def test_launch_counters_count_kernel_launches(dev, mode, pack_method,
+                                               expected):
+    st = engine.stage(_data(50_000, 1), mode=mode, device=dev)
+    _build.LAUNCHES.clear()
+    engine.decode(engine.encode(st, pack_method=pack_method))
+    assert dict(_build.LAUNCHES) == expected
 
 
 def test_failed_build_raises_instead_of_falling_back(dev, monkeypatch):

@@ -1,5 +1,6 @@
 """The ported Markov slice end to end against the JAX package: the same
-container bytes, and each package decodes the other's containers."""
+container bytes, and each package decodes the other's containers
+(order-0: tests/test_torch_order0.py)."""
 
 import hashlib
 import zlib
@@ -67,15 +68,6 @@ def test_bench_corpus_4mb_digest():
     ref = jax_api.compress(data)
     assert hashlib.sha256(ours).hexdigest() == chip_smoke.REF_4MB_SHA256
     assert hashlib.sha256(ref).hexdigest() == chip_smoke.REF_4MB_SHA256
-
-
-def test_order0_is_declared_not_ported():
-    data = english_like(5000)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        mhc_tpu_torch.compress(data, mode="huffman", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        mhc_tpu_torch.decompress(jax_api.compress(data, mode="huffman"),
-                                 device="cpu")
 
 
 def test_corrupt_payload_fails_crc():
