@@ -13,22 +13,38 @@ checking every kernel those paths run:
      resources printed)
   3. kernels: each kernel vs its plain PyTorch version on its path's own
      inputs — exact equality (integer codec, tolerance 0), CUDA-event
-     times of both (minimum over repeated calls): K1, K3, K5, K4, K7m on
-     the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) == K3(x);
-     K2, K3 (again, in the same row) and K7o on the order-0 inputs
-     (6,400 units of 16 KB)
+     times of both (minimum over repeated calls): K1, K3, K5, K4, K6,
+     K7m on the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) and
+     the compacted K6(K5(x)) == K3(x); K2, K3 (again, in the same row)
+     and K7o on the order-0 inputs (6,400 units of 16 KB)
   4. main path (Markov): engine.stage -> encode -> decode -> fetch_bytes
      with the launch counters reset before and read after; bit-exact
      round trip; container size and sha256 equal to the JAX reference's;
      the container decodes through api.decompress; encode and decode GB/s
-  5. dense path: the same Markov input through engine.encode with
-     pack_method="dense" (K5 then K4, K3 never launched); the same
-     container; encode GB/s, timed in turns with the fused encode
-  6. order-0 path: engine.stage(mode="huffman") -> encode -> decode ->
+  5. dense and pallas paths: the same Markov input through engine.encode
+     with pack_method="dense" (K5 then K4) and "pallas" (K5 then K6, the
+     bubble stream compacted), K3 never launched; the same container;
+     encode GB/s, each timed in turns with the fused encode
+  6. payload route: Markov with 64 KB decode units (== blocks, no
+     literal units) through pack_method="pallas", whose bubble stream
+     goes straight to the payload; the JAX reference's container for
+     that unit size; bit-exact round trip through engine.decode
+  7. order-0 path: engine.stage(mode="huffman") -> encode -> decode ->
      fetch_bytes, counters as in 4 (K2, K3, K7o launched, K1 not);
      bit-exact; the JAX reference's container; api.compress writes it and
-     api.decompress reads it; encode and decode GB/s
-  7. oracle: when `make -C oracle` builds, each container is no larger
+     api.decompress reads it; encode and decode GB/s; then api.compress
+     with pack_method="pallas" (K5, K6) writes it too
+  8. host bytes: the chunked api.compress / api.decompress (at least two
+     chunks), host bytes in and out, the reference container, timed in
+     turns at 16 MB chunks and at the default `api.CHUNK_BYTES`
+  9. CLI: `python -m mhc_tpu_torch.cli` encode (32 MB segments: a chain
+     of 4 containers equal to mhc_tpu.api.compress_file's), decode (equal
+     to the input), stat; wall seconds of each
+  10. hybrid: hybrid.compress / decompress at host_fraction 0.5, the
+     reference container, bit-exact, wall seconds
+  11. corrupt containers on the card: a payload bit flip, a truncation
+     and a bad magic each raise ValueError, then a clean decode works
+  12. oracle: when `make -C oracle` builds, each container is no larger
      than the single-core C++ oracle's (em for Markov, e0 for order-0)
 Every phase prints one JSON line; any failure raises (non-zero exit, no
 final line). Before the last line come the `nvidia-smi` line and the
@@ -58,6 +74,15 @@ REF_100MB_SHA256 = ("28da84b513c9d2ba04aea6cd708d97b5"
 REF_ORDER0_100MB_LEN = 96_102_412
 REF_ORDER0_100MB_SHA256 = ("1b6cb2a06fb5998b21389a05f2fdf9a5"
                            "7b368c9eb138d3b926a3ea7ffe2ef6ab")
+# mhc_tpu.api.compress(bench.make_corpus(100 << 20), decode_unit=65536):
+REF_100MB_DU64K_LEN = 83_792_755
+REF_100MB_DU64K_SHA256 = ("77617ae59c134f39513a8984a5e1ff3b"
+                          "0f2d1d0b4eb3c93aa28e37417cc0751c")
+# mhc_tpu.api.compress_file of the same corpus with segment_size=32 MiB
+# (4 chained containers):
+REF_100MB_SEG32M_LEN = 77_223_411
+REF_100MB_SEG32M_SHA256 = ("3c1cf61d668bc69f88cbd09efb54a7ee"
+                           "2e86e79267f9d3b94a438e15725548e7")
 # the same for bench.make_corpus(4 << 20) (checked by the CPU tests)
 REF_4MB_SHA256 = ("54f0867e82f83dd27606e1a1df827687"
                   "846701316e48a2dc56f0a09f274bcc86")
@@ -72,6 +97,8 @@ KERNELS = {
     "pack_units": ("encode.cu", "mhc_tpu/ops/kernels/encode_pallas.py:711"),
     "lookup_cl": ("encode.cu", "mhc_tpu/ops/kernels/lookup_pallas.py:278"),
     "pack_cl": ("encode.cu", "mhc_tpu/ops/kernels/encode_pallas.py:291"),
+    "bubble_pack": ("encode.cu",
+                    "mhc_tpu/ops/kernels/encode_pallas.py:375"),
     "decode_units": ("decode.cu",
                      "mhc_tpu/ops/kernels/decode_pallas.py:857"),
     "decode_units_order0": ("decode.cu",
@@ -168,10 +195,11 @@ def compare(torch, rows: dict, name: str, kern, plain, reps: int,
 
 
 def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
-    """K1, K3, K5, K4 and K7m against their plain versions on the Markov
-    main path's inputs."""
+    """K1, K3, K5, K4, K6 and K7m against their plain versions on the
+    Markov main path's inputs."""
     from mhc_tpu_torch import engine
     from mhc_tpu_torch.models.entropy import MARKOV
+    from mhc_tpu_torch.ops import bitpack
     from mhc_tpu_torch.ops.kernels import (decode_cuda, encode_cuda,
                                            histogram_cuda)
     st = engine.stage(data, device=dev)
@@ -197,7 +225,17 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
          words_and_bits_equal=same)
     if not same:
         raise AssertionError("K4(K5(x)) differs from K3(x)")
-    del cl, split, fused
+    del split
+    bubbles = compare(torch, rows, "bubble_pack",
+                      lambda: encode_cuda.bubble_pack(cl),
+                      lambda: encode_cuda.bubble_pack_plain(cl), 5, 1)
+    words = bitpack.compact_bubbles(*bubbles, fused[0].shape[1])
+    same = torch.equal(words, fused[0]) and torch.equal(bubbles[3], fused[1])
+    emit("kernel", check="compact_bubbles(bubble_pack(lookup_cl(x))) == "
+         "pack_units(x)", words_and_bits_equal=same)
+    if not same:
+        raise AssertionError("the compacted K6(K5(x)) differs from K3(x)")
+    del cl, fused, bubbles, words
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     du = enc.decode_unit
@@ -319,29 +357,208 @@ def round_trip(torch, data: bytes, mode: str, dev, path: str,
     return blob, launches
 
 
-def phase_dense_path(torch, data: bytes, dev) -> dict:
-    """Markov 100 MB through engine.encode(pack_method="dense")."""
+def phase_split_path(torch, data: bytes, dev, pack_method: str,
+                     want: dict) -> dict:
+    """Markov 100 MB through engine.encode(pack_method="dense" or
+    "pallas"), counted, then timed in turns with the fused encode."""
     from mhc_tpu_torch import engine
+    path = f"{pack_method}_path"
     torch.cuda.empty_cache()
     st = engine.stage(data, device=dev)
     enc, launches = run_counted(
-        torch, lambda: engine.encode(st, pack_method="dense"))
-    require_launches("dense_path", launches,
-                     {"lookup_cl": "once", "pack_cl": "once",
-                      "pack_units": "none"})
-    # dense and fused timed in turns, so that the two compare within one
+        torch, lambda: engine.encode(st, pack_method=pack_method))
+    require_launches(path, launches, want)
+    # the two encodes timed in turns, so that they compare within one
     # call: minimum over the turns of each
-    ms = {"fused": float("inf"), "dense": float("inf")}
-    for turn in ("fused", "dense", "dense", "fused") * 2:
+    ms = {"fused": float("inf"), pack_method: float("inf")}
+    for turn in ("fused", pack_method, pack_method, "fused") * 2:
         _, t = min_ms(torch, lambda: engine.encode(st, pack_method=turn), 1)
         ms[turn] = min(ms[turn], t)
     blob = engine.assemble_container(enc, zlib.crc32(data) & 0xFFFFFFFF)
-    emit("dense_path", n_bytes=len(data), launches=launches,
-         encode_ms=ms["dense"], encode_GBps=len(data) / ms["dense"] / 1e6,
+    emit(path, n_bytes=len(data), launches=launches,
+         encode_ms=ms[pack_method],
+         encode_GBps=len(data) / ms[pack_method] / 1e6,
          fused_encode_ms_in_turns=ms["fused"], container_bytes=len(blob),
          sha256=hashlib.sha256(blob).hexdigest())
-    check_container("dense_path", blob, REF_100MB_LEN, REF_100MB_SHA256)
+    check_container(path, blob, REF_100MB_LEN, REF_100MB_SHA256)
     return launches
+
+
+def phase_payload_route(torch, data: bytes, dev) -> None:
+    """Markov 100 MB with decode_unit == block_size through
+    pack_method="pallas": K6's bubble stream straight to the payload."""
+    from mhc_tpu_torch import engine
+    torch.cuda.empty_cache()
+
+    def drive():
+        st = engine.stage(data, decode_unit=65536, device=dev)
+        enc = engine.encode(st, pack_method="pallas")
+        return st, enc, engine.decode(enc)
+
+    (st, enc, out), launches = run_counted(torch, drive)
+    require_launches("payload_route", launches,
+                     {"lookup_cl": "once", "bubble_pack": "once",
+                      "pack_units": "none", "pack_cl": "none",
+                      "decode_units": "once"})
+    if engine.fetch_bytes(enc, out) != data:
+        raise AssertionError("payload_route: round trip is not bit-exact")
+    del out
+    _, enc_ms = min_ms(
+        torch, lambda: engine.encode(st, pack_method="pallas"), TIMED_REPS)
+    _, dec_ms = min_ms(torch, lambda: engine.decode(enc), TIMED_REPS)
+    blob = engine.assemble_container(enc, zlib.crc32(data) & 0xFFFFFFFF)
+    emit("payload_route", n_bytes=len(data), n_units=enc.n_units,
+         decode_unit=enc.decode_unit, launches=launches, encode_ms=enc_ms,
+         decode_ms=dec_ms, container_bytes=len(blob),
+         sha256=hashlib.sha256(blob).hexdigest())
+    check_container("payload_route", blob, REF_100MB_DU64K_LEN,
+                    REF_100MB_DU64K_SHA256)
+
+
+def phase_order0_pallas(torch, data: bytes, dev) -> None:
+    """Order-0 100 MB through api.compress(pack_method="pallas")."""
+    from mhc_tpu_torch import api
+    torch.cuda.empty_cache()
+    blob, launches = run_counted(torch, lambda: api.compress(
+        data, mode="huffman", device=dev, pack_method="pallas"))
+    require_launches("order0_pallas", launches,
+                     {"order0_hist": "some", "lookup_cl": "some",
+                      "bubble_pack": "some", "pack_units": "none",
+                      "markov_hist": "none"})
+    emit("order0_pallas", n_bytes=len(data), launches=launches,
+         container_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest())
+    check_container("order0_pallas", blob, REF_ORDER0_100MB_LEN,
+                    REF_ORDER0_100MB_SHA256)
+
+
+def wall_s(torch, fn):
+    """(fn()'s result, host wall seconds of the call, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_host_bytes(torch, data: bytes, dev) -> None:
+    """The chunked api.compress / api.decompress at 100 MB, host bytes in
+    and out, counted once, then timed in turns at 16 MB chunks and at
+    the default chunk size."""
+    from mhc_tpu_torch import api
+    torch.cuda.empty_cache()
+    default = api.CHUNK_BYTES
+    n_chunks = len(api._chunks(-(-len(data) // api.DEFAULT_DECODE_UNIT),
+                               api.DEFAULT_DECODE_UNIT))
+    if n_chunks < 2:
+        raise AssertionError("host_bytes: the default chunk size gives "
+                             f"{n_chunks} chunk at 100 MB")
+    blob, launches = run_counted(
+        torch, lambda: api.compress(data, device=dev))
+    require_launches("host_bytes", launches,
+                     {"markov_hist": "some", "pack_units": "some"})
+    check_container("host_bytes", blob, REF_100MB_LEN, REF_100MB_SHA256)
+    out, dec_launches = run_counted(
+        torch, lambda: api.decompress(blob, device=dev))
+    if out != data:
+        raise AssertionError("host_bytes: api.decompress did not return "
+                             "the input")
+    del out
+    secs = {}
+    try:
+        for size in (16 << 20, default, default, 16 << 20) * 2:
+            api.CHUNK_BYTES = size
+            got, c = wall_s(torch, lambda: api.compress(data, device=dev))
+            back, d = wall_s(torch, lambda: api.decompress(got, device=dev))
+            if got != blob or back != data:
+                raise AssertionError(f"host_bytes: {size}-byte chunks "
+                                     "changed the bytes")
+            old = secs.get(size, (float("inf"), float("inf")))
+            secs[size] = (min(old[0], c), min(old[1], d))
+    finally:
+        api.CHUNK_BYTES = default
+    emit("host_bytes", n_bytes=len(data), chunk_bytes=default,
+         n_chunks=n_chunks, launches=launches, decode_launches=dec_launches,
+         compress_s={str(k): v[0] for k, v in secs.items()},
+         decompress_s={str(k): v[1] for k, v in secs.items()},
+         compress_GBps=len(data) / secs[default][0] / 1e9,
+         decompress_GBps=len(data) / secs[default][1] / 1e9,
+         container_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest())
+
+
+def phase_cli(corpus_path: str, data: bytes) -> None:
+    """The CLI as a user runs it, in subprocesses."""
+    out_dir = os.path.dirname(corpus_path)
+    mhc = os.path.join(out_dir, "corpus_seg32m.mhc")
+    back = os.path.join(out_dir, "corpus_back.bin")
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "mhc_tpu_torch.cli", *args],
+                           cwd=REPO, capture_output=True, text=True,
+                           timeout=600)
+        dt = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"cli {args[0]} exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        return r.stdout.strip().splitlines()[-1], dt
+
+    enc_out, enc_s = cli("encode", "--segment-size", "32M", "--report",
+                         corpus_path, mhc)
+    with open(mhc, "rb") as f:
+        blob = f.read()
+    check_container("cli", blob, REF_100MB_SEG32M_LEN,
+                    REF_100MB_SEG32M_SHA256)
+    dec_out, dec_s = cli("decode", "--report", mhc, back)
+    with open(back, "rb") as f:
+        if f.read() != data:
+            raise AssertionError("cli: decode did not return the input")
+    stat_out, stat_s = cli("stat", mhc)
+    emit("cli", encode_report=json.loads(enc_out), encode_wall_s=enc_s,
+         decode_report=json.loads(dec_out), decode_wall_s=dec_s,
+         stat=json.loads(stat_out), stat_wall_s=stat_s,
+         container_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest())
+    for p in (mhc, back):
+        os.remove(p)
+
+
+def phase_hybrid(torch, data: bytes, dev) -> None:
+    from mhc_tpu_torch import hybrid
+    torch.cuda.empty_cache()
+    blob, c = wall_s(torch, lambda: hybrid.compress(
+        data, host_fraction=0.5, device=dev))
+    check_container("hybrid", blob, REF_100MB_LEN, REF_100MB_SHA256)
+    out, d = wall_s(torch, lambda: hybrid.decompress(
+        blob, host_fraction=0.5, device=dev))
+    if out != data:
+        raise AssertionError("hybrid: decompress did not return the input")
+    emit("hybrid", n_bytes=len(data), host_fraction=0.5, compress_s=c,
+         decompress_s=d, container_bytes=len(blob))
+
+
+def phase_corrupt(torch, blob: bytes, data: bytes, dev) -> None:
+    """Damaged containers decoded on the card raise ValueError, with no
+    CUDA error, and the card decodes cleanly afterwards."""
+    from mhc_tpu_torch import api, container
+    meta = container.parse_container(blob)
+    flipped = bytearray(blob)
+    flipped[meta.payload_off + int(meta.byte_lengths.sum()) // 2] ^= 0x10
+    cases = {"payload_bit_flip": (bytes(flipped), "crc32"),
+             "truncated": (blob[: len(blob) // 2], "truncated"),
+             "bad_magic": (b"MHTX" + blob[4:], "magic")}
+    seen = {}
+    for name, (bad, want) in cases.items():
+        try:
+            api.decompress(bad, device=dev)
+        except ValueError as e:
+            if want not in str(e):
+                raise AssertionError(f"corrupt {name}: {e}") from e
+            seen[name] = str(e)
+        else:
+            raise AssertionError(f"corrupt {name}: decoded without error")
+    torch.cuda.synchronize()
+    if api.decompress(blob, device=dev) != data:
+        raise AssertionError("corrupt: the clean decode afterwards failed")
+    emit("corrupt", errors=seen, clean_decode_after=True)
 
 
 def phase_oracle(blobs: dict, corpus_path: str) -> None:
@@ -383,21 +600,34 @@ def main() -> int:
         torch, data, "markov", dev, "main_path",
         {"markov_hist": "once", "pack_units": "once",
          "decode_units": "once"}, REF_100MB_LEN, REF_100MB_SHA256)
-    dense_launches = phase_dense_path(torch, data, dev)
+    dense_launches = phase_split_path(
+        torch, data, dev, "dense",
+        {"lookup_cl": "once", "pack_cl": "once", "pack_units": "none"})
+    pallas_launches = phase_split_path(
+        torch, data, dev, "pallas",
+        {"lookup_cl": "once", "bubble_pack": "once", "pack_units": "none",
+         "pack_cl": "none"})
+    phase_payload_route(torch, data, dev)
     order0_blob, order0_launches = round_trip(
         torch, data, "huffman", dev, "order0_path",
         {"order0_hist": "some", "pack_units": "some",
          "decode_units_order0": "some", "markov_hist": "none"},
         REF_ORDER0_100MB_LEN, REF_ORDER0_100MB_SHA256)
+    phase_order0_pallas(torch, data, dev)
+    phase_host_bytes(torch, data, dev)
     corpus_path = os.path.join(_build.BUILD_DIR, "corpus_100mb.bin")
     with open(corpus_path, "wb") as f:
         f.write(data)
+    phase_cli(corpus_path, data)
+    phase_hybrid(torch, data, dev)
+    phase_corrupt(torch, markov_blob, data, dev)
     phase_oracle({"em": markov_blob, "e0": order0_blob}, corpus_path)
     # each kernel's launches on the path that runs it (K3: the main path;
     # the order-0 path's launches are in its own line)
     path_of = {"order0_hist": order0_launches,
                "decode_units_order0": order0_launches,
-               "lookup_cl": dense_launches, "pack_cl": dense_launches}
+               "lookup_cl": dense_launches, "pack_cl": dense_launches,
+               "bubble_pack": pallas_launches}
     for name, row in rows.items():
         row["launches"] = path_of.get(name, launches)[name]
     if set(rows) != set(KERNELS):

@@ -7,19 +7,26 @@ packages write the same MHTC container, and each decodes the other's.
 This package imports torch and numpy only, never jax or mhc_tpu.
 
 Ported so far: both modes, Markov and order-0 (histogram, host table
-build, lookup+pack — fused, or split into a cl-plane lookup and a pack
-with pack_method="dense" — and decode), through `compress`/`decompress`
-and the device-resident `engine`. `device=None` means the first CUDA
-card and raises without one; the CPU runs only when named.
+build, lookup+pack — fused; or split into a cl-plane lookup and a pack,
+pack_method="dense"; or the lookup and the bubble-stream pack,
+pack_method="pallas" — and decode), through the device-resident
+`engine`, the chunked host-bytes `compress`/`decompress`, the file
+functions with segment chaining, the `hybrid` host/device split and the
+CLI (`python -m mhc_tpu_torch.cli encode|decode|stat`). `device=None`
+means the first CUDA card and raises without one; the CPU runs only when
+named.
 """
 
-from .api import (DEFAULT_BLOCK_SIZE, DEFAULT_DECODE_UNIT, compress,
-                  decompress)
+from .api import (DEFAULT_BLOCK_SIZE, DEFAULT_DECODE_UNIT,
+                  DEFAULT_SEGMENT_SIZE, compress, compress_file,
+                  compression_report, decompress, decompress_file)
 from .models.entropy import MARKOV, ORDER0, get_model
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "compress", "decompress", "get_model", "ORDER0", "MARKOV",
-    "DEFAULT_BLOCK_SIZE", "DEFAULT_DECODE_UNIT", "__version__",
+    "compress", "decompress", "compress_file", "decompress_file",
+    "compression_report", "get_model", "ORDER0", "MARKOV",
+    "DEFAULT_BLOCK_SIZE", "DEFAULT_DECODE_UNIT", "DEFAULT_SEGMENT_SIZE",
+    "__version__",
 ]

@@ -216,7 +216,9 @@ def parse_tables(mode: int, raw: bytes, off: int, packed: bool = False):
             raise ValueError("mhc: truncated container (table code lens)")
         code_lens = unpack_nibbles(raw[off:off + 8], (16,))
         off += 8
-        nib, used = entropy_decode(raw[off:], code_lens, 256 * npresent)
+        # a view: slicing `raw` would copy the whole container
+        nib, used = entropy_decode(memoryview(raw)[off:], code_lens,
+                                   256 * npresent)
         if np.any(nib >= 16):
             raise ValueError("mhc: corrupt packed table section")
         off += used
@@ -366,11 +368,12 @@ def unpack_index(raw: bytes, off: int, n_units: int):
 
 def build_container(mode: int, orig_len: int, block_size: int,
                     lengths: np.ndarray, bit_lengths: np.ndarray,
-                    payload: bytes, crc: int | None,
+                    payload, crc: int | None,
                     decode_unit: int | None = None) -> bytes:
     """bit_lengths: per-unit BIT lengths (units are decode_unit slices when
-    decode_unit is set, else whole blocks). payload: already-concatenated
-    byte-aligned unit streams."""
+    decode_unit is set, else whole blocks). payload: the byte-aligned unit
+    streams, bytes-like, or a list of bytes-like pieces in order (joined
+    once, here)."""
     flags = FLAG_CRC32 if crc is not None else 0
     aligned = aligned_payload(mode)
     if decode_unit is not None and decode_unit != block_size:
@@ -413,7 +416,8 @@ def build_container(mode: int, orig_len: int, block_size: int,
             flags |= FLAG_PACKED_TABLES
     head = _HEADER.pack(MAGIC, VERSION, mode, flags, du_log2,
                         orig_len, block_size, n_blocks)
-    parts = [head, tables, index, payload]
+    pieces = payload if isinstance(payload, list) else [payload]
+    parts = [head, tables, index, *pieces]
     if crc is not None:
         parts.append(struct.pack("<I", crc & 0xFFFFFFFF))
     return b"".join(parts)

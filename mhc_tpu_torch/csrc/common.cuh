@@ -62,35 +62,56 @@ struct ClTable {
 };
 
 // ---------------------------------------------------------------------------
-// MSB-first bit packer of one unit stream, as K3 and K4 write it: codes
-// are concatenated from bit 31 of word 0; each full word is stored as it
-// completes, the partial tail word by finish(). Rows arrive zeroed, so
-// words past the stream stay 0; writes at index >= W are dropped.
+// MSB-first bit accumulator of one unit stream, as K3, K4 and K6 build it:
+// codes are concatenated from bit 31 of word 0, and each 32-bit word is
+// handed out as it completes. A code is at most 15 bits and fewer than 32
+// bits are pending before a put, so one put completes at most one word.
 // ---------------------------------------------------------------------------
 
-struct BitPacker {
-  uint32_t* out;
-  int64_t W;
+struct BitAcc {
   uint64_t acc = 0;   // low `nacc` bits are pending, MSB first
   int nacc = 0;
-  int64_t wi = 0;
   int32_t total = 0;
 
-  __device__ __forceinline__ void put(uint32_t cl) {
+  // Appends a code (cl = len << 16 | code); returns true, with the word in
+  // `word`, when that completes a word.
+  __device__ __forceinline__ bool put(uint32_t cl, uint32_t& word) {
     const int len = (int)(cl >> 16);
     acc = (acc << len) | (cl & 0xFFFFu);
     nacc += len;
     total += len;
-    if (nacc >= 32) {
-      nacc -= 32;
-      if (wi < W) out[wi] = (uint32_t)(acc >> nacc);
+    if (nacc < 32) return false;
+    nacc -= 32;
+    word = (uint32_t)(acc >> nacc);
+    return true;
+  }
+
+  // The pending bits, MSB-aligned in one word; 0 when none are pending.
+  __device__ __forceinline__ uint32_t partial() const {
+    return (uint32_t)(acc << (32 - nacc));
+  }
+};
+
+// The packer of K3 and K4: each full word is stored as it completes, the
+// partial tail word by finish(). Rows arrive zeroed, so words past the
+// stream stay 0; writes at index >= W are dropped.
+struct BitPacker {
+  uint32_t* out;
+  int64_t W;
+  BitAcc a{};
+  int64_t wi = 0;
+
+  __device__ __forceinline__ void put(uint32_t cl) {
+    uint32_t word;
+    if (a.put(cl, word)) {
+      if (wi < W) out[wi] = word;
       ++wi;
     }
   }
 
   // Stores the tail word; returns the stream's bit count.
   __device__ __forceinline__ int32_t finish() {
-    if (nacc > 0 && wi < W) out[wi] = (uint32_t)(acc << (32 - nacc));
-    return total;
+    if (a.nacc > 0 && wi < W) out[wi] = a.partial();
+    return a.total;
   }
 };

@@ -1,10 +1,12 @@
 // The encode kernels: K3 (fused lookup + pack), and the split form of the
 // same contract, K5 (lookup to a cl plane) followed by K4 (pack of a cl
-// plane). A "cl plane" holds len << 16 | code for every symbol.
+// plane) or by K6 (bubble-stream pack of a cl plane). A "cl plane" holds
+// len << 16 | code for every symbol.
 //
-// K3 and K5 read the (prev, cur) table through the same ClTable, and K3
-// and K4 write through the same BitPacker (common.cuh), so K3 equals K5
-// followed by K4 word for word by construction.
+// K3 and K5 read the (prev, cur) table through the same ClTable, and K3,
+// K4 and K6 accumulate bits through the same BitAcc (common.cuh), so K3
+// equals K5 followed by K4 word for word, and compacting K6's bubble
+// stream gives the same words, by construction.
 //
 // K3 replaces mhc_tpu/ops/kernels/encode_pallas.py::pack_blocks_fused_sm
 // (pallas_call at :711, body _fused_kernel :545). The TPU kernel reads
@@ -47,6 +49,24 @@
 // loads are not coalesced (each thread reads its row 16 bytes at a
 // time): with the idle SMs, the first thing a faster K4 changes; the
 // serial bit chain is as in K3.
+//
+// K6 replaces mhc_tpu/ops/kernels/encode_pallas.py::_run_bubble_pack
+// (pallas_call at :375, body _pack_kernel; reached through
+// pack_blocks_pallas and pack_blocks_to_payload). Per unit, each round
+// appends two codes and hands out at most one word (two codes are at most
+// 30 bits): round r writes (word, valid) to slot r of the unit's bubble
+// stream, and at a round that completes no word the slot holds the
+// pending bits MSB-aligned, as the TPU kernel's `word = a0` does. The TPU
+// kernel wrote every round to a dense row because a lane cannot store to
+// its own address; here the bubble planes are kept for the contract, and
+// the compaction after the kernel (ops/bitpack.py) is what K4 avoids. One
+// thread per unit, as K4: the row is read 16 bytes at a time, and the
+// planes are stored round-major (slot (r, b) at r * R + b), so a warp's 32
+// stores of a round fall on 128 contiguous bytes of bw and 32 of bv. It
+// writes 5 bytes per round (262 MB of bubble planes for the 419 MB cl
+// plane of the Markov main path), but the serial bit chain per unit on
+// 100 of 132 SMs bounds it, as K4. A later PR would fill the idle SMs, as
+// for K4, or drop the bubble planes for K4's direct stores.
 
 #include "common.cuh"
 
@@ -147,6 +167,41 @@ pack_cl_kernel(const uint32_t* __restrict__ cl, int64_t R, int64_t n,
   bits[b] = pk.finish();
 }
 
+// vec: n % 4 == 0 and cl 16-byte aligned, so a row is read 16 bytes (two
+// rounds) at a time. bw and bv are round-major: slot (r, b) at r * R + b.
+__global__ void __launch_bounds__(kPackThreads)
+bubble_pack_kernel(const uint32_t* __restrict__ cl, int64_t R, int64_t n,
+                   uint32_t* __restrict__ bw, uint8_t* __restrict__ bv,
+                   uint32_t* __restrict__ tail, int32_t* __restrict__ bits,
+                   bool vec) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= R) return;
+  const uint32_t* row = cl + b * n;
+  BitAcc a{};
+  auto put_round = [&](int64_t r, uint32_t c0, uint32_t c1) {
+    uint32_t w0 = 0, w1 = 0;
+    const bool e0 = a.put(c0, w0);
+    const bool e1 = a.put(c1, w1);
+    bw[r * R + b] = e0 ? w0 : (e1 ? w1 : a.partial());
+    bv[r * R + b] = (uint8_t)(e0 || e1);
+  };
+  if (vec) {
+    const uint4* row4 = reinterpret_cast<const uint4*>(row);
+    for (int64_t q = 0; q < n / 4; ++q) {
+      const uint4 v = __ldg(row4 + q);
+      put_round(2 * q, v.x, v.y);
+      put_round(2 * q + 1, v.z, v.w);
+    }
+  } else {
+    // an odd n's last round takes a zero-length second code
+    for (int64_t r = 0; 2 * r < n; ++r)
+      put_round(r, __ldg(row + 2 * r),
+                2 * r + 1 < n ? __ldg(row + 2 * r + 1) : 0u);
+  }
+  tail[b] = a.partial();
+  bits[b] = a.total;
+}
+
 }  // namespace
 
 // words: (R, W) uint32, zeroed by the caller; bits: (R,) int32.
@@ -194,5 +249,18 @@ extern "C" int mhc_pack_cl(const uint32_t* cl, int64_t R, int64_t n,
   const unsigned blocks = (unsigned)((R + kPackThreads - 1) / kPackThreads);
   pack_cl_kernel<<<blocks, kPackThreads, 0, stream>>>(cl, R, n, words, W,
                                                        bits, vec);
+  return (int)cudaGetLastError();
+}
+
+// cl: (R, n) uint32; bw: (ceil(n / 2), R) uint32 and bv: (ceil(n / 2), R)
+// uint8, round-major, every slot written; tail, bits: (R,).
+extern "C" int mhc_bubble_pack(const uint32_t* cl, int64_t R, int64_t n,
+                               uint32_t* bw, uint8_t* bv, uint32_t* tail,
+                               int32_t* bits, cudaStream_t stream) {
+  const bool vec =
+      n % 4 == 0 && reinterpret_cast<uintptr_t>(cl) % 16 == 0;
+  const unsigned blocks = (unsigned)((R + kPackThreads - 1) / kPackThreads);
+  bubble_pack_kernel<<<blocks, kPackThreads, 0, stream>>>(cl, R, n, bw, bv,
+                                                           tail, bits, vec);
   return (int)cudaGetLastError();
 }

@@ -3,21 +3,27 @@
 Counterpart of `mhc_tpu/engine.py`. Input units, the compressed payload
 and the decoded output all live in device memory; the only host traffic
 is the counts, the uint8 code-length header and the per-unit length
-index. The engine launches once over all units: the reference's 16 MB
-chunk loop bounded TPU VMEM and compile size, which a GPU does not need.
+index. The engine launches once over all units it is given: the
+reference's 16 MB chunk loop bounded TPU VMEM and compile size, which a
+GPU does not need (the host-bytes API in `api.py` chunks for its copies).
 
 Paths, Markov and order-0 alike:
   encode: histogram (K1 Markov, K2 order-0) -> host table build ->
           canonical tables -> lookup+pack -> literal substitution ->
           compaction, where lookup+pack is
             pack_method="fused" (default): K3;
-            pack_method="dense": K5 (cl plane) then K4 (pack)
+            pack_method="dense": K5 (cl plane) then K4 (pack);
+            pack_method="pallas": K5 then K6 (bubble stream), compacted
+              by `bitpack.compact_bubbles`; for Markov with decode_unit
+              == block_size (no literal units) the bubble stream goes
+              straight to the payload (`bitpack.bubbles_to_payload`)
   decode: expansion -> decode (K7m Markov, K7o order-0; literal units
           skipped) -> literal overwrite
-The engine payload is word-aligned in both modes, as in the reference;
-`fetch_payload` cuts it to the container's byte-aligned order-0 layout
-on the host. `assemble_container()` turns an EncodeResult into the
-container bytes that `mhc_tpu.api.compress` writes for the same input.
+All three pack methods write the same bytes. The engine payload is
+word-aligned in both modes, as in the reference; `fetch_payload` cuts it
+to the container's byte-aligned order-0 layout on the host.
+`assemble_container()` turns an EncodeResult into the container bytes
+that `mhc_tpu.api.compress` writes for the same input.
 """
 
 from __future__ import annotations
@@ -33,12 +39,9 @@ from .models.entropy import get_model
 from .ops import bitpack
 from .ops.kernels import decode_cuda, encode_cuda
 
-# the reference's `pack_method` values the port carries; "pallas" (the
-# bubble-stream packer, K6) becomes the third when K6 is ported
-PACK_METHODS = ("fused", "dense")
+# the reference's `pack_method` values the port carries
+PACK_METHODS = ("fused", "dense", "pallas")
 _REJECTED = {
-    "pallas": "the bubble-stream packer K6, still to port (ROADMAP.md, "
-              "\"Still to port\")",
     "merge": "the XLA merge packer, on ROADMAP.md's \"Do not port\" list",
     "scatter": "the XLA scatter packer, on ROADMAP.md's \"Do not port\" "
                "list"}
@@ -98,8 +101,7 @@ def histogram(st: Staged) -> np.ndarray:
 
 
 def check_pack_method(pack_method: str | None) -> str:
-    """None -> "fused"; raises ValueError for anything but "fused" and
-    "dense"."""
+    """None -> "fused"; raises ValueError for anything but PACK_METHODS."""
     pack_method = pack_method or "fused"
     if pack_method in PACK_METHODS:
         return pack_method
@@ -116,7 +118,8 @@ def encode(st: Staged, lengths: np.ndarray | None = None,
     """Histogram -> host table build -> lookup+pack -> literal
     substitution -> dense word-aligned payload, all but the table build
     on the device. `lengths` overrides the histogram and table build;
-    `pack_method` is "fused" (None, K3) or "dense" (K5 then K4)."""
+    `pack_method` is "fused" (None, K3), "dense" (K5 then K4) or
+    "pallas" (K5 then K6)."""
     pack_method = check_pack_method(pack_method)
     model = get_model(st.mode)
     dev = st.units.device
@@ -125,24 +128,43 @@ def encode(st: Staged, lengths: np.ndarray | None = None,
     lengths = np.asarray(lengths, dtype=np.uint8)
     tables = model.tables_from_lengths(lengths, dev)
     tab = (tables["codes"], tables["lengths"])
-    if pack_method == "fused":
-        words, bits = encode_cuda.pack_units(st.units, st.n_valid, *tab)
-    else:            # K5 then K4: the same words and bits as K3
-        words, bits = encode_cuda.pack_cl(
+    aligned = container.aligned_payload(model.mode)
+    literals = st.decode_unit != st.block_size   # substream layout
+    if pack_method == "pallas" and aligned and not literals:
+        # the reference's pack_blocks_to_payload: the bubble stream goes
+        # straight to the payload, with no words plane
+        bubbles = encode_cuda.bubble_pack(
             encode_cuda.lookup_cl(st.units, st.n_valid, *tab))
-    if st.decode_unit != st.block_size:          # substream layout
-        words, bits = bitpack.substitute_raw_units(
-            words, bits, st.units, st.n_valid,
-            container.aligned_payload(model.mode))
-    bit_lens = bits.cpu().numpy().astype(np.int64)
-    word_lens = torch.from_numpy((bit_lens + 31) // 32).to(dev)
-    payload = bitpack.device_compact_words(words, word_lens)
+        padded = bitpack.bubbles_to_payload(*bubbles)
+        bit_lens = bubbles[3].cpu().numpy().astype(np.int64)
+        # a copy of the streams, so the result does not hold the padding
+        payload = padded[: int(((bit_lens + 31) // 32).sum())].clone()
+    else:
+        words, bits = _pack(st, tab, pack_method)
+        if literals:
+            words, bits = bitpack.substitute_raw_units(
+                words, bits, st.units, st.n_valid, aligned)
+        bit_lens = bits.cpu().numpy().astype(np.int64)
+        word_lens = torch.from_numpy((bit_lens + 31) // 32).to(dev)
+        payload = bitpack.device_compact_words(words, word_lens)
     return EncodeResult(
         mode=st.mode, block_size=st.block_size, decode_unit=st.decode_unit,
         orig_len=st.orig_len, n_units=st.n_units, lengths=lengths,
         byte_lens=container.stream_byte_lens(bit_lens, model.mode),
-        bit_lens=bit_lens, payload=payload,
-        aligned=container.aligned_payload(model.mode))
+        bit_lens=bit_lens, payload=payload, aligned=aligned)
+
+
+def _pack(st: Staged, tab, pack_method: str):
+    """(words (R, W) int32, bits (R,) int32) of the staged units; the
+    three pack methods give the same."""
+    if pack_method == "fused":
+        return encode_cuda.pack_units(st.units, st.n_valid, *tab)
+    cl = encode_cuda.lookup_cl(st.units, st.n_valid, *tab)
+    if pack_method == "dense":
+        return encode_cuda.pack_cl(cl)
+    bubbles = encode_cuda.bubble_pack(cl)
+    return (bitpack.compact_bubbles(
+        *bubbles, bitpack.words_for_block(st.decode_unit)), bubbles[3])
 
 
 def _offsets(lens: np.ndarray) -> np.ndarray:
@@ -212,17 +234,26 @@ def fetch_bytes(enc: EncodeResult, out: torch.Tensor) -> bytes:
     return out.cpu().numpy().reshape(-1).tobytes()[: enc.orig_len]
 
 
-def fetch_payload(enc: EncodeResult) -> bytes:
-    """Dense container-layout payload bytes (host): big-endian words,
-    each unit cut to its ceil(bits / 8) bytes where the layout is
-    unaligned (order-0). Not codec time."""
-    raw = enc.payload.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+def be_payload(enc: EncodeResult) -> torch.Tensor:
+    """The engine payload's words as big-endian bytes, on its device."""
+    return bitpack.words_to_be_bytes(enc.payload)
+
+
+def payload_bytes(enc: EncodeResult, be: np.ndarray):
+    """Container-layout payload, bytes-like, from `be_payload(enc)` on the
+    host: `be` itself where the layout is word-aligned, else each unit cut
+    to its ceil(bits / 8) bytes (order-0)."""
     if enc.aligned:
-        return raw
-    mv = memoryview(raw)
+        return be
+    mv = memoryview(be)
     starts = 4 * _offsets((enc.bit_lens + 31) // 32)
     return b"".join(mv[s: s + n] for s, n in
                     zip(starts.tolist(), enc.byte_lens.tolist()))
+
+
+def fetch_payload(enc: EncodeResult) -> bytes:
+    """Dense container-layout payload bytes (host). Not codec time."""
+    return bytes(payload_bytes(enc, be_payload(enc).cpu().numpy()))
 
 
 def assemble_container(enc: EncodeResult, data_crc: int | None) -> bytes:

@@ -2,9 +2,11 @@
 
 Counterpart of the XLA (non-Pallas) parts of `mhc_tpu/ops/bitpack.py`
 that the main paths run: the worst-case stream width, literal units, the
-dense aligned payload's compaction and expansion, and the byte-granular
-expansion of an unaligned container payload. The kernels themselves
-live in `ops/kernels/`.
+dense aligned payload's compaction and expansion, the two compactions of
+K6's bubble stream (`compact_bubbles`, `bubbles_to_payload`, from
+`mhc_tpu/ops/kernels/encode_pallas.py`), and the byte-granular expansion
+of an unaligned container payload. The kernels themselves live in
+`ops/kernels/`.
 
 Words are kept as torch.int32 bit patterns: torch's uint32 lacks shifts
 and many CPU ops. Bit order is MSB-first within each 32-bit word, and
@@ -32,6 +34,17 @@ def _be_words(units: torch.Tensor) -> torch.Tensor:
     R, du = units.shape
     return units.reshape(R, du // 4, 4).flip(-1).contiguous().view(
         torch.int32).reshape(R, du // 4)
+
+
+def words_to_be_bytes(words: torch.Tensor) -> torch.Tensor:
+    """(T,) int32 words -> (4T,) uint8, each word big-endian (the
+    container's byte order)."""
+    return words.view(torch.uint8).reshape(-1, 4).flip(1).reshape(-1)
+
+
+def be_bytes_to_words(b: torch.Tensor) -> torch.Tensor:
+    """(4T,) uint8 big-endian words -> (T,) int32."""
+    return _be_words(b.reshape(1, -1))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +121,50 @@ def device_compact_words(words: torch.Tensor,
     keep = (torch.arange(W, device=words.device)[None, :]
             < word_lens.to(words.device)[:, None])
     return words[keep]
+
+
+# ---------------------------------------------------------------------------
+# Bubble streams, K6's output: per unit one (word, valid) slot per round of
+# two codes, the pending tail word and the bit count. A unit's k-th valid
+# slot is its word k; the tail follows where bits % 32 != 0. Slots that
+# are not valid are written to dump positions past the result, one per
+# unit, so that no two writes of a valid word meet.
+# ---------------------------------------------------------------------------
+
+def compact_bubbles(bw: torch.Tensor, bv: torch.Tensor, tail: torch.Tensor,
+                    bits: torch.Tensor, W: int) -> torch.Tensor:
+    """(R, rounds) bubble words and 0/1 flags, (R,) tail and bits -> (R,
+    W) int32 streams, zero past each: K4's words for the same cl plane."""
+    R = bw.shape[0]
+    b = bits.long()
+    pos = torch.cumsum(bv, dim=1, dtype=torch.long) - 1
+    words = torch.zeros((R, W + 1), dtype=torch.int32, device=bw.device)
+    words.scatter_(1, torch.where(bv > 0, pos, W), bw)
+    words.scatter_(1, torch.where(b & 31 > 0, b >> 5, W)[:, None],
+                   tail[:, None])
+    return words[:, :W]
+
+
+def bubbles_to_payload(bw: torch.Tensor, bv: torch.Tensor,
+                       tail: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """The bubble stream straight to the dense aligned payload, each
+    unit's word offset an exclusive cumsum of ceil(bits / 32) on the
+    device, so no host sync. The result has R * (rounds + 1) words, a
+    bound on the total (a round completes at most one word), zero past
+    the streams: the caller cuts it to the total once the bits reach the
+    host."""
+    R, rounds = bw.shape
+    dev = bw.device
+    b = bits.long()
+    wl = (b + 31) >> 5
+    offs = torch.cumsum(wl, 0) - wl
+    pad = R * (rounds + 1)
+    dump = pad + torch.arange(R, device=dev)
+    pos = torch.cumsum(bv, dim=1, dtype=torch.long) - 1
+    payload = torch.zeros(pad + R, dtype=torch.int32, device=dev)
+    payload[torch.where(bv > 0, offs[:, None] + pos, dump[:, None])] = bw
+    payload[torch.where(b & 31 > 0, offs + (b >> 5), dump)] = tail
+    return payload[:pad]
 
 
 def device_expand_words_u32(payload: torch.Tensor,

@@ -7,12 +7,15 @@
   lookup_cl_sm_pallas, unit-major here.
 - K4 `pack_cl`: MSB-first pack of a cl plane; replaces
   encode_pallas.py::pack_blocks_dense.
+- K6 `bubble_pack`: the bubble-stream pack of a cl plane, one (word,
+  valid) slot per round of two codes; replaces
+  encode_pallas.py::_run_bubble_pack. `ops/bitpack.py` compacts its output.
 
-All three live in csrc/encode.cu (sm_90a) and share its table read and
-bit packer, so K4(K5(x)) equals K3(x) word for word; the plain versions
-are composed the same way. K3 and K4 run one thread per unit, bounded by
-each unit's serial bit chain; K5 is bounded by device-memory bandwidth
-(see the source note).
+All four live in csrc/encode.cu (sm_90a) and share its table read and
+bit accumulator, so K4(K5(x)) equals K3(x) word for word, and so do K6's
+compacted words; the plain versions are composed the same way. K3, K4
+and K6 run one thread per unit, bounded by each unit's serial bit chain;
+K5 is bounded by device-memory bandwidth (see the source note).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ _I = ctypes.c_int64
 _PACK_ARGTYPES = [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P]
 _LOOKUP_ARGTYPES = [_P, _P, _I, _I, _P, _P, _P, _P]
 _PACK_CL_ARGTYPES = [_P, _I, _I, _P, _I, _P, _P]
+_BUBBLE_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _P]
 
 
 def _check(units, n_valid, codes, lengths) -> str:
@@ -104,6 +108,34 @@ def pack_cl_plain(cl: torch.Tensor):
     return _to_i32(words[:, :W]), total.to(torch.int32)
 
 
+def bubble_pack_plain(cl: torch.Tensor):
+    """K6's contract without a loop over rounds. With S_r a unit's bits
+    after round r (a cumsum of pairwise lengths), round r completes word
+    S_{r-1} >> 5 of pack_cl_plain's stream iff S_r >> 5 exceeds it; at a
+    round that completes none, the slot holds word S_r >> 5 cut to its top
+    S_r & 31 bits (the pending bits), and the tail is that word at the
+    stream's end."""
+    R, n = cl.shape
+    rounds = (n + 1) // 2
+    words, total = pack_cl_plain(cl)
+    w = words.long() & 0xFFFFFFFF
+    lens = cl.long() >> 16
+    if n % 2:
+        lens = torch.cat([lens, torch.zeros_like(lens[:, :1])], dim=1)
+    pair = lens.reshape(R, rounds, 2).sum(-1)
+    after = torch.cumsum(pair, dim=1)
+    before = after - pair
+    bv = (after >> 5) - (before >> 5)
+
+    def pending(s):
+        cut = 32 - (s & 31)
+        return (w.gather(1, s >> 5) >> cut) << cut
+
+    bw = torch.where(bv > 0, w.gather(1, before >> 5), pending(after))
+    tail = pending(total.long()[:, None])[:, 0]
+    return _to_i32(bw), bv.to(torch.uint8), _to_i32(tail), total
+
+
 def pack_units_plain(units, n_valid, codes, lengths):
     """K3's contract as K5 then K4, in plain torch."""
     return pack_cl_plain(lookup_cl_plain(units, n_valid, codes, lengths))
@@ -171,3 +203,30 @@ def pack_cl(cl: torch.Tensor):
             _build.stream_ptr(dev))
     _build.launched(lib, rc, "pack_cl")
     return words, bits
+
+
+def bubble_pack(cl: torch.Tensor):
+    """(R, n) int32 cl plane -> (bw (R, ceil(n/2)) int32 bit patterns, bv
+    (R, ceil(n/2)) uint8 0/1, tail (R,) int32, bits (R,) int32): slot r of
+    a unit is the word its round r (codes 2r and 2r + 1) completes, with
+    bv 1, or else its pending bits MSB-aligned, with bv 0; tail is the
+    pending bits after the last round, bits the stream's length. CPU
+    tensors take the plain version; CUDA tensors launch K6, and bw and bv
+    are then transposed views of its round-major planes."""
+    if _check_cl(cl) == "cpu":
+        return bubble_pack_plain(cl)
+    lib, fn = _build.load("encode", "mhc_bubble_pack", _BUBBLE_ARGTYPES)
+    R, n = cl.shape
+    rounds = (n + 1) // 2
+    dev = cl.device
+    # the kernel writes every element
+    bw = torch.empty((rounds, R), dtype=torch.int32, device=dev)
+    bv = torch.empty((rounds, R), dtype=torch.uint8, device=dev)
+    tail = torch.empty((R,), dtype=torch.int32, device=dev)
+    bits = torch.empty((R,), dtype=torch.int32, device=dev)
+    if R == 0:
+        return bw.t(), bv.t(), tail, bits
+    rc = fn(cl.data_ptr(), R, n, bw.data_ptr(), bv.data_ptr(),
+            tail.data_ptr(), bits.data_ptr(), _build.stream_ptr(dev))
+    _build.launched(lib, rc, "bubble_pack")
+    return bw.t(), bv.t(), tail, bits

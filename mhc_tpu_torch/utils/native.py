@@ -2,9 +2,11 @@
 
 The port's own binding to the C++ library that `mhc_tpu` also uses: the
 deterministic Huffman length builder and the container's metadata
-decoders. The library is built on demand with `make -C native`; every
-entry point used here keeps a numpy fallback, so the port also works
-where no C++ compiler is installed.
+decoders, which keep a numpy fallback, so the codec also works where no
+C++ compiler is installed; and the threaded host unit codec of the
+hybrid executor (`join_rows` to `decode_units`), which has none and
+raises without the library: a caller that asks for host threads gets
+them or an error. The library is built on demand with `make -C native`.
 """
 
 from __future__ import annotations
@@ -57,6 +59,27 @@ def _load():
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.mhc_split.restype = None
+    lib.mhc_join.argtypes = lib.mhc_split.argtypes
+    lib.mhc_join.restype = None
+    lib.mhc_hist_markov.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    lib.mhc_hist_order0.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    lib.mhc_build_enc_table.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    lib.mhc_build_dec_lut.argtypes = lib.mhc_build_enc_table.argtypes
+    lib.mhc_encode_units.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int]
+    lib.mhc_decode_units.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int]
+    for fn in (lib.mhc_hist_markov, lib.mhc_hist_order0,
+               lib.mhc_build_enc_table, lib.mhc_build_dec_lut,
+               lib.mhc_encode_units, lib.mhc_decode_units):
+        fn.restype = None
     lib.mhc_code_lengths.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
     lib.mhc_code_lengths.restype = None
@@ -165,3 +188,120 @@ def split_rows(payload, lens: np.ndarray, stride: int) -> np.ndarray:
     lib.mhc_split(buf.ctypes.data, R, stride, lens.ctypes.data,
                   offsets.ctypes.data, rows.ctypes.data)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The host unit codec (native/mhc_codec.cpp, threaded): bit-identical to
+# the device path by construction, so the hybrid executor may give any
+# unit to either. No fallbacks.
+# ---------------------------------------------------------------------------
+
+def require():
+    """The loaded library; raises RuntimeError without it."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            f"the native host library ({_SO}) is missing or failed to "
+            "build with `make -C native`")
+    return lib
+
+
+def join_rows(rows: np.ndarray, lens: np.ndarray) -> bytes:
+    """Concatenate per-row prefixes: rows (R, S) uint8, lens (R,) ->
+    packed bytes of sum(lens)."""
+    lib = require()
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    R, S = rows.shape
+    if R and (lens.min() < 0 or lens.max() > S):
+        raise ValueError("join_rows: a length exceeds the row")
+    offsets = np.zeros(R, dtype=np.int64)
+    np.cumsum(lens[:-1], out=offsets[1:])
+    out = np.empty(int(lens.sum()), dtype=np.uint8)
+    lib.mhc_join(rows.ctypes.data, R, S, lens.ctypes.data,
+                 offsets.ctypes.data, out.ctypes.data)
+    return out.tobytes()
+
+
+def hist_markov(data: np.ndarray, unit: int) -> np.ndarray:
+    """(256, 256) int64 Markov histogram, the context reset per unit."""
+    lib = require()
+    d = np.ascontiguousarray(data, dtype=np.uint8)
+    counts = np.zeros(256 * 256, np.int64)
+    lib.mhc_hist_markov(d.ctypes.data, d.size, unit, counts.ctypes.data)
+    return counts.reshape(256, 256)
+
+
+def hist_order0(data: np.ndarray) -> np.ndarray:
+    """(256,) int64 byte histogram."""
+    lib = require()
+    d = np.ascontiguousarray(data, dtype=np.uint8)
+    counts = np.zeros(256, np.int64)
+    lib.mhc_hist_order0(d.ctypes.data, d.size, counts.ctypes.data)
+    return counts
+
+
+def build_enc_table(lengths: np.ndarray) -> np.ndarray:
+    """(nctx, 256) lengths -> (nctx, 256) uint32 len << 16 | code."""
+    lib = require()
+    lens = np.ascontiguousarray(lengths, dtype=np.uint8).reshape(-1, 256)
+    packed = np.empty(lens.shape, np.uint32)
+    lib.mhc_build_enc_table(lens.ctypes.data, lens.shape[0],
+                            packed.ctypes.data)
+    return packed
+
+
+def encode_units(data: np.ndarray, unit: int, packed: np.ndarray,
+                 markov: bool, row_stride: int, raw_mode: int = 0):
+    """Encode the ceil(n / unit) unit streams of `data` into rows of
+    `row_stride` bytes; returns (rows, bit_lens). raw_mode: 0 no literal
+    units, 1 the unaligned layout's rule, 2 the word-aligned rule
+    (container FLAG_RAW_UNITS)."""
+    lib = require()
+    d = np.ascontiguousarray(data, dtype=np.uint8)
+    packed = np.ascontiguousarray(packed, dtype=np.uint32)
+    n_units = (d.size + unit - 1) // unit
+    rows = np.empty((n_units, row_stride), np.uint8)
+    bit_lens = np.empty(n_units, np.int64)
+    lib.mhc_encode_units(d.ctypes.data, d.size, unit, n_units,
+                         packed.ctypes.data, 1 if markov else 0,
+                         rows.ctypes.data, row_stride, bit_lens.ctypes.data,
+                         raw_mode)
+    return rows, bit_lens
+
+
+def build_dec_lut(lengths: np.ndarray) -> np.ndarray:
+    """(nctx, 256) lengths -> (nctx, 2**15) uint16 LUT (sym | len << 8)."""
+    lib = require()
+    lens = np.ascontiguousarray(lengths, dtype=np.uint8).reshape(-1, 256)
+    lut = np.empty((lens.shape[0], 1 << 15), np.uint16)
+    lib.mhc_build_dec_lut(lens.ctypes.data, lens.shape[0], lut.ctypes.data)
+    return lut
+
+
+def decode_units(payload: np.ndarray, offsets: np.ndarray,
+                 byte_lens: np.ndarray, unit: int, n_total: int,
+                 lut: np.ndarray, markov: bool, out: np.ndarray,
+                 raw_mode: int = 0) -> None:
+    """Decode unit streams (unit u at payload[offsets[u]:][:byte_lens[u]])
+    into `out`, a (n_total,) uint8 array: unit u fills out[u * unit:][:
+    unit]. raw_mode as in encode_units (literal units are copied)."""
+    lib = require()
+    payload = np.ascontiguousarray(payload, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    byte_lens = np.ascontiguousarray(byte_lens, dtype=np.int64)
+    lut = np.ascontiguousarray(lut, dtype=np.uint16)
+    n_units = len(byte_lens)
+    if (out.dtype != np.uint8 or not out.flags.c_contiguous
+            or out.size != n_total or n_units != -(-n_total // unit)
+            or len(offsets) != n_units):
+        raise ValueError("decode_units: out, offsets and byte_lens do not "
+                         "match n_total and unit")
+    if n_units and (offsets.min() < 0 or byte_lens.min() < 0 or
+                    (offsets + byte_lens).max() > payload.size):
+        raise ValueError("mhc: corrupt container (unit stream outside "
+                         "the payload)")
+    lib.mhc_decode_units(payload.ctypes.data, offsets.ctypes.data,
+                         byte_lens.ctypes.data, n_units, unit, n_total,
+                         lut.ctypes.data, 1 if markov else 0,
+                         out.ctypes.data, raw_mode)

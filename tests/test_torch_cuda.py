@@ -11,8 +11,9 @@ import pytest
 import torch
 
 import mhc_tpu_torch
-from mhc_tpu_torch import engine
+from mhc_tpu_torch import api, engine, hybrid
 from mhc_tpu_torch.models.entropy import get_model
+from mhc_tpu_torch.ops import bitpack
 from mhc_tpu_torch.ops.kernels import (_build, decode_cuda, encode_cuda,
                                        histogram_cuda)
 
@@ -39,10 +40,10 @@ def _data(n: int, seed: int) -> bytes:
                                         (5_000, 4096, 4096),
                                         (1_001, 2, 2)])
 def test_kernels_equal_plain_versions(dev, mode, n, block, du):
-    """Each mode's histogram, K3, K5, K4 and decode kernel against its
-    plain version: units with and without literals, and decode units that
-    are not multiples of 4 (K7's byte-store path, K5's and K4's scalar
-    paths)."""
+    """Each mode's histogram, K3, K5, K4, K6 and decode kernel against
+    its plain version: units with and without literals, and decode units
+    that are not multiples of 4 (K7's byte-store path, K5's, K4's and
+    K6's scalar paths)."""
     model = get_model(mode)
     hist, hist_plain = ((histogram_cuda.markov_hist,
                          histogram_cuda.markov_hist_plain) if model.markov
@@ -65,6 +66,11 @@ def test_kernels_equal_plain_versions(dev, mode, n, block, du):
     assert all(torch.equal(a, b) for a, b in zip(split, fused))
     assert all(torch.equal(a, b)
                for a, b in zip(split, encode_cuda.pack_cl_plain(cl)))
+    bubbles = encode_cuda.bubble_pack(cl)
+    assert all(torch.equal(a, b) for a, b in
+               zip(bubbles, encode_cuda.bubble_pack_plain(cl)))
+    assert torch.equal(bitpack.compact_bubbles(
+        *bubbles, bitpack.words_for_block(du)), fused[0])
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     args = (words, n_dec, t["lim"], t["base"], t["first_code"],
@@ -99,6 +105,9 @@ def test_unaligned_widths_equal_plain_versions(dev, mode, n):
                        encode_cuda.pack_units(u, nv, t["codes"],
                                               t["lengths"])):
         assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b in zip(encode_cuda.bubble_pack(cl),
+                    encode_cuda.bubble_pack_plain(cl)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
@@ -110,8 +119,9 @@ def test_unaligned_widths_equal_plain_versions(dev, mode, n):
 def test_gpu_container_equals_cpu_container(dev, mode, data):
     blob = mhc_tpu_torch.compress(data, mode=mode, device=dev)
     assert blob == mhc_tpu_torch.compress(data, mode=mode, device="cpu")
-    assert blob == mhc_tpu_torch.compress(data, mode=mode, device=dev,
-                                          pack_method="dense")
+    for pack_method in ("dense", "pallas"):
+        assert blob == mhc_tpu_torch.compress(data, mode=mode, device=dev,
+                                              pack_method=pack_method)
     assert mhc_tpu_torch.decompress(blob, device=dev) == data
 
 
@@ -122,14 +132,36 @@ def test_gpu_container_equals_cpu_container(dev, mode, data):
                          "decode_units": 1}),
     ("huffman", "fused", {"order0_hist": 1, "pack_units": 1,
                           "decode_units_order0": 1}),
+    ("markov", "pallas", {"markov_hist": 1, "lookup_cl": 1,
+                          "bubble_pack": 1, "decode_units": 1}),
     ("huffman", "dense", {"order0_hist": 1, "lookup_cl": 1, "pack_cl": 1,
-                          "decode_units_order0": 1})])
+                          "decode_units_order0": 1}),
+    ("huffman", "pallas", {"order0_hist": 1, "lookup_cl": 1,
+                           "bubble_pack": 1, "decode_units_order0": 1})])
 def test_launch_counters_count_kernel_launches(dev, mode, pack_method,
                                                expected):
     st = engine.stage(_data(50_000, 1), mode=mode, device=dev)
     _build.LAUNCHES.clear()
     engine.decode(engine.encode(st, pack_method=pack_method))
     assert dict(_build.LAUNCHES) == expected
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_chunked_api_and_hybrid_on_the_card(dev, monkeypatch, mode):
+    """Several chunks through the side-stream copies, and the hybrid
+    split, write the CPU's container and read it back."""
+    data = _data(300_001, 3)
+    ref = mhc_tpu_torch.compress(data, mode=mode, device="cpu")
+    monkeypatch.setattr(api, "CHUNK_BYTES", 40_000)
+    for pack_method in ("fused", "pallas"):
+        assert api.compress(data, mode=mode, device=dev,
+                            pack_method=pack_method) == ref
+    assert api.decompress(ref, device=dev) == data
+    for frac in (0.0, 0.5):
+        assert hybrid.compress(data, mode=mode, host_fraction=frac,
+                               device=dev) == ref
+        assert hybrid.decompress(ref, host_fraction=frac,
+                                 device=dev) == data
 
 
 def test_failed_build_raises_instead_of_falling_back(dev, monkeypatch):

@@ -4,7 +4,9 @@
 On the CPU the kernels' plain versions run: K5 equals api.lookup_cl and
 the Pallas lookup kernel (interpret mode), K4 equals the Pallas dense
 packer (interpret mode), and K5 then K4 equals K3 and the reference's
-merge packer. `compress(pack_method="dense")` writes the fused path's
+merge packer. `compress(pack_method="dense")` and
+`compress(pack_method="pallas")` (K5 then the bubble-stream packer K6;
+tests/test_torch_bubble.py holds K6 itself) write the fused path's
 container, which is the JAX package's. Tolerance 0 throughout.
 """
 
@@ -109,12 +111,31 @@ def test_dense_container_equals_fused_and_jax(mode, data):
     assert mhc_tpu_torch.decompress(dense, device="cpu") == data
 
 
-@pytest.mark.parametrize("pack_method", ["pallas", "merge", "scatter",
-                                         "bubble"])
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+@pytest.mark.parametrize("block_size,decode_unit", [(65536, 8192),
+                                                   (4096, 4096)],
+                         ids=["units_8k", "units_eq_blocks"])
+@pytest.mark.parametrize("data", [english_like(120_000, seed=4),
+                                  mixed_binary(90_000, seed=5), b"Q"],
+                         ids=["english", "mixed", "one_byte"])
+def test_pallas_container_equals_jax(mode, block_size, decode_unit, data):
+    """K5 then K6: with decode_unit == block_size a Markov encode takes
+    the bubble stream straight to the payload (the reference's
+    pack_blocks_to_payload); otherwise it compacts it to words first."""
+    blob = mhc_tpu_torch.compress(data, mode=mode, device="cpu",
+                                  block_size=block_size,
+                                  decode_unit=decode_unit,
+                                  pack_method="pallas")
+    assert blob == jax_api.compress(data, mode=mode, block_size=block_size,
+                                    decode_unit=decode_unit)
+    assert mhc_tpu_torch.decompress(blob, device="cpu") == data
+
+
+@pytest.mark.parametrize("pack_method", ["merge", "scatter", "bubble"])
 def test_rejected_pack_method_raises(pack_method):
     st = engine.stage(b"abcabc", device="cpu")
-    match = {"pallas": "K6, still to port", "merge": "Do not port",
-             "scatter": "Do not port", "bubble": "unknown"}[pack_method]
+    match = {"merge": "Do not port", "scatter": "Do not port",
+             "bubble": "unknown"}[pack_method]
     with pytest.raises(ValueError, match=match):
         engine.encode(st, pack_method=pack_method)
     with pytest.raises(ValueError, match=match):
