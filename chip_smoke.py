@@ -4,21 +4,28 @@
     python3 chip_smoke.py
 
 Drives the port's paths at their real size on the 100 MB mixed corpus of
-`bench.make_corpus` (seed 42), 64 KB blocks, all unit streams resident
-on the card, through the entry points a user calls, after building and
-checking every kernel those paths run:
+`mhc_tpu_torch.utils.corpus.make_corpus` (seed 42; the port's copy of
+the reference's `bench.make_corpus`, the same bytes), 64 KB blocks, all
+unit streams resident on the card, through the entry points a user
+calls, after building and checking every kernel those paths run:
 
   1. device: fail without CUDA; print `nvidia-smi` name and power limit
   2. build:  nvcc each csrc/*.cu for sm_90a, all at once (ptxas
      resources printed)
   3. kernels: each kernel vs its plain PyTorch version on its path's own
      inputs — exact equality (integer codec, tolerance 0), CUDA-event
-     times of both (minimum over repeated calls): K1, K3, K5, K4, K6,
-     K7m on the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) and
-     the compacted K6(K5(x)) == K3(x); K2, K3 (again, in the same row)
-     and K7o on the order-0 inputs (6,400 units of 16 KB)
+     times of both (minimum over repeated calls), the bound (bytes the
+     function must move over 3.35 TB/s, coded words counted as this
+     run's bits give them) and the library call over a prepared index
+     (K1 and K2: a bare `torch.bincount`; K5: one `torch.take`, checked
+     equal to K5): K1, K3, K5, K4, K6, K7's table build and K7m
+     on the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) and the
+     compacted K6(K5(x)) == K3(x); K2, K3 (again, in the same row), K7's
+     order-0 table build and K7o on the order-0 inputs (6,400 units of
+     16 KB)
   4. main path (Markov): engine.stage -> encode -> decode -> fetch_bytes
-     with the launch counters reset before and read after; bit-exact
+     with the launch counters reset before and read after (K1, K3, K7's
+     table build and K7m once each); bit-exact
      round trip; container size and sha256 equal to the JAX reference's;
      the container decodes through api.decompress; encode and decode GB/s
   5. dense and pallas paths: the same Markov input through engine.encode
@@ -30,7 +37,8 @@ checking every kernel those paths run:
      goes straight to the payload; the JAX reference's container for
      that unit size; bit-exact round trip through engine.decode
   7. order-0 path: engine.stage(mode="huffman") -> encode -> decode ->
-     fetch_bytes, counters as in 4 (K2, K3, K7o launched, K1 not);
+     fetch_bytes, counters as in 4 (K2, K3, the order-0 table build and
+     K7o launched, K1 not);
      bit-exact; the JAX reference's container; api.compress writes it and
      api.decompress reads it; encode and decode GB/s; then api.compress
      with pack_method="pallas" (K5, K6) writes it too
@@ -50,7 +58,7 @@ Every phase prints one JSON line; any failure raises (non-zero exit, no
 final line). Before the last line come the `nvidia-smi` line and the
 `kernels` line; the last line is the device summary.
 
-Imports nothing of JAX or mhc_tpu.
+Imports nothing of JAX, mhc_tpu or the reference's bench.
 """
 
 from __future__ import annotations
@@ -87,6 +95,7 @@ REF_100MB_SEG32M_SHA256 = ("3c1cf61d668bc69f88cbd09efb54a7ee"
 REF_4MB_SHA256 = ("54f0867e82f83dd27606e1a1df827687"
                   "846701316e48a2dc56f0a09f274bcc86")
 TIMED_REPS = 3
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
@@ -103,6 +112,10 @@ KERNELS = {
                      "mhc_tpu/ops/kernels/decode_pallas.py:857"),
     "decode_units_order0": ("decode.cu",
                             "mhc_tpu/ops/kernels/decode_pallas.py:845"),
+    # K7's decode table, built on the card for the decode kernel
+    "decode_lut": ("decode.cu", "mhc_tpu/ops/kernels/decode_pallas.py:857"),
+    "decode_lut_order0": ("decode.cu",
+                          "mhc_tpu/ops/kernels/decode_pallas.py:845"),
 }
 
 
@@ -137,6 +150,17 @@ def as_tuple(x) -> tuple:
     return x if isinstance(x, tuple) else (x,)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def coded_bytes(bits, rows=None) -> int:
+    """Bytes of the coded words of each unit (of `rows`, a mask): what a
+    packer writes or a decoder reads for this run's data."""
+    words = (bits.long() + 31) // 32
+    return 4 * int((words if rows is None else words[rows]).sum())
+
+
 def phase_device(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,21 +187,33 @@ def phase_build(names) -> None:
 
 
 def compare(torch, rows: dict, name: str, kern, plain, reps: int,
-            plain_reps: int, inputs: str = "markov"):
+            plain_reps: int, inputs: str = "markov", bound_bytes=None,
+            library=None, symbols_per_unit=None):
     """Kernel `name` vs its plain version on one path's inputs
     ("markov" or "order0"), tolerance 0; records the comparison in the
-    kernel's row and returns the kernel's outputs. A kernel that both
-    paths run (K3) is held on each path's inputs: its row's ms, plain_ms
-    and launches are the first path's, its max_abs_err the largest, and
-    `on_inputs` has each comparison."""
+    kernel's row and returns the kernel's outputs. bound_bytes(outputs)
+    gives the bytes the function must move; `library` is one PyTorch call
+    computing the same function (timed only); symbols_per_unit gives the
+    ns per symbol of one unit's chain. A kernel that both paths run (K3)
+    is held on each path's inputs: its row's numbers are the first
+    path's, its max_abs_err the largest, and `on_inputs` has each
+    comparison."""
     got, ms = min_ms(torch, kern, reps)
     ref, plain_ms = min_ms(torch, plain, plain_reps)
     got, ref = as_tuple(got), as_tuple(ref)
     err = max(max_abs_err(a, b) for a, b in zip(got, ref, strict=True))
     shapes = [list(t.shape) for t in got]
+    moved = bound_bytes(got)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    library_ms = min_ms(torch, library, reps)[1] if library else None
+    extra = {"bound_ms": bound_ms, "bound_by": "bytes",
+             "bound_bytes": moved, "share_of_bound": bound_ms / ms,
+             "library_ms": library_ms}
+    if symbols_per_unit:
+        extra["ns_per_symbol"] = ms * 1e6 / symbols_per_unit
     emit("kernel", kernel=name, inputs=inputs, shapes=shapes,
          max_abs_err=err, tolerance=0, ms=ms, plain_ms=plain_ms,
-         plain_inputs="full shape")
+         plain_inputs="full shape", **extra)
     if err != 0:
         raise AssertionError(f"{name} differs from its plain version on "
                              f"the {inputs} inputs (max abs err {err}); "
@@ -186,12 +222,38 @@ def compare(torch, rows: dict, name: str, kern, plain, reps: int,
     row = rows.setdefault(name, {
         "name": name, "route": "cuda",
         "source": f"mhc_tpu_torch/csrc/{src}", "replaces": replaces,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **extra,
         "on_inputs": {}})
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row["on_inputs"][inputs] = {"shapes": shapes, "max_abs_err": err,
-                                "ms": ms, "plain_ms": plain_ms}
+                                "ms": ms, "plain_ms": plain_ms, **extra}
     return got
+
+
+def flat_index(torch, u, nv, markov: bool, past=None):
+    """The int64 index a bare library call reads: prev * 256 + cur
+    (Markov, prev 0 at a unit's start) or the byte; positions past
+    n_valid dropped (a flat index for torch.bincount) or, with `past`,
+    set to it ((R, n), for torch.take)."""
+    cur = u.long()
+    valid = (torch.arange(u.shape[1], device=u.device)[None, :]
+             < nv[:, None])
+    if markov:
+        prev = torch.nn.functional.pad(cur[:, :-1], (1, 0))
+        cur = prev * 256 + cur
+    return cur[valid] if past is None else torch.where(valid, cur, past)
+
+
+def decode_lut_checks(torch, rows: dict, t: dict, markov: bool) -> None:
+    """K7's table build vs its plain version on the path's tables."""
+    from mhc_tpu_torch.ops.kernels import decode_cuda
+    args = (t["lim"], t["base"], t["first_code"], t["sorted_syms"])
+    read = nbytes(*args) if markov else nbytes(*args) // 256
+    compare(torch, rows, "decode_lut" if markov else "decode_lut_order0",
+            lambda: decode_cuda.decode_lut(*args, markov=markov),
+            lambda: decode_cuda.decode_lut_plain(*args, markov=markov),
+            10, 3, "markov" if markov else "order0",
+            bound_bytes=lambda out: read + nbytes(*out))
 
 
 def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
@@ -204,22 +266,45 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
                                            histogram_cuda)
     st = engine.stage(data, device=dev)
     u, nv = st.units, st.n_valid
+    idx = flat_index(torch, u, nv, True)
     (counts,) = compare(
         torch, rows, "markov_hist",
         lambda: histogram_cuda.markov_hist(u, nv),
-        lambda: histogram_cuda.markov_hist_plain(u, nv), 10, 3)
+        lambda: histogram_cuda.markov_hist_plain(u, nv), 10, 3,
+        bound_bytes=lambda out: nbytes(u, nv, *out),
+        library=lambda: torch.bincount(idx, minlength=65536))
+    del idx
     lengths = MARKOV.lengths_from_counts(counts.cpu().numpy())
     t = MARKOV.tables_from_lengths(lengths, dev)
     tab = (t["codes"], t["lengths"])
+    n = u.shape[1]
     fused = compare(torch, rows, "pack_units",
                     lambda: encode_cuda.pack_units(u, nv, *tab),
-                    lambda: encode_cuda.pack_units_plain(u, nv, *tab), 5, 2)
+                    lambda: encode_cuda.pack_units_plain(u, nv, *tab), 5, 2,
+                    bound_bytes=lambda out: (nbytes(u, nv, *tab, out[1])
+                                             + coded_bytes(out[1])),
+                    symbols_per_unit=n)
+    # K5 as one gather: the (len << 16 | code) table with a 0 entry at
+    # 65536, where the positions past n_valid point
+    cl_table = torch.cat([(t["lengths"] << 16 | t["codes"]).reshape(-1),
+                          torch.zeros(1, dtype=torch.int32, device=dev)])
+    idx = flat_index(torch, u, nv, True, past=65536)
     (cl,) = compare(torch, rows, "lookup_cl",
                     lambda: encode_cuda.lookup_cl(u, nv, *tab),
-                    lambda: encode_cuda.lookup_cl_plain(u, nv, *tab), 5, 2)
+                    lambda: encode_cuda.lookup_cl_plain(u, nv, *tab), 5, 2,
+                    bound_bytes=lambda out: nbytes(u, nv, *tab, *out),
+                    library=lambda: torch.take(cl_table, idx))
+    same = torch.equal(torch.take(cl_table, idx), cl)
+    emit("kernel", check="torch.take(cl table, index) == lookup_cl(x)",
+         equal=same)
+    if not same:
+        raise AssertionError("K5's library call differs from K5")
+    del idx
     split = compare(torch, rows, "pack_cl",
                     lambda: encode_cuda.pack_cl(cl),
-                    lambda: encode_cuda.pack_cl_plain(cl), 5, 2)
+                    lambda: encode_cuda.pack_cl_plain(cl), 5, 2,
+                    bound_bytes=lambda out: (nbytes(cl, out[1])
+                                             + coded_bytes(out[1])))
     same = all(torch.equal(a, b) for a, b in zip(split, fused, strict=True))
     emit("kernel", check="pack_cl(lookup_cl(x)) == pack_units(x)",
          words_and_bits_equal=same)
@@ -228,7 +313,8 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
     del split
     bubbles = compare(torch, rows, "bubble_pack",
                       lambda: encode_cuda.bubble_pack(cl),
-                      lambda: encode_cuda.bubble_pack_plain(cl), 5, 1)
+                      lambda: encode_cuda.bubble_pack_plain(cl), 5, 1,
+                      bound_bytes=lambda out: nbytes(cl, *out))
     words = bitpack.compact_bubbles(*bubbles, fused[0].shape[1])
     same = torch.equal(words, fused[0]) and torch.equal(bubbles[3], fused[1])
     emit("kernel", check="compact_bubbles(bubble_pack(lookup_cl(x))) == "
@@ -239,12 +325,16 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     du = enc.decode_unit
+    decode_lut_checks(torch, rows, t, True)
     dec_args = (words, n_dec, t["lim"], t["base"], t["first_code"],
                 t["sorted_syms"])
+    read = (coded_bytes(torch.from_numpy(enc.bit_lens), n_dec.cpu() > 0)
+            + nbytes(*dec_args[1:]))
     compare(torch, rows, "decode_units",
             lambda: decode_cuda.decode_units(*dec_args, n_out=du),
             lambda: decode_cuda.decode_units_plain(*dec_args, n_out=du),
-            5, 1)
+            5, 1, bound_bytes=lambda out: read + nbytes(*out),
+            symbols_per_unit=du)
 
 
 def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
@@ -256,28 +346,39 @@ def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
                                            histogram_cuda)
     st = engine.stage(data, mode="huffman", device=dev)
     u, nv = st.units, st.n_valid
+    idx = flat_index(torch, u, nv, False)
     (counts,) = compare(
         torch, rows, "order0_hist",
         lambda: histogram_cuda.order0_hist(u, nv),
-        lambda: histogram_cuda.order0_hist_plain(u, nv), 10, 3, "order0")
+        lambda: histogram_cuda.order0_hist_plain(u, nv), 10, 3, "order0",
+        bound_bytes=lambda out: nbytes(u, nv, *out),
+        library=lambda: torch.bincount(idx, minlength=256))
+    del idx
     lengths = ORDER0.lengths_from_counts(counts.cpu().numpy())
     t = ORDER0.tables_from_lengths(lengths, dev)
     tab = (t["codes"], t["lengths"])
     compare(torch, rows, "pack_units",
             lambda: encode_cuda.pack_units(u, nv, *tab),
             lambda: encode_cuda.pack_units_plain(u, nv, *tab), 5, 2,
-            "order0")
+            "order0", bound_bytes=lambda out: (nbytes(u, nv, *tab, out[1])
+                                               + coded_bytes(out[1])),
+            symbols_per_unit=u.shape[1])
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     du = enc.decode_unit
+    decode_lut_checks(torch, rows, t, False)
     dec_args = (words, n_dec, t["lim"], t["base"], t["first_code"],
                 t["sorted_syms"])
+    # order-0 reads row 0 of each table
+    read = (coded_bytes(torch.from_numpy(enc.bit_lens), n_dec.cpu() > 0)
+            + nbytes(n_dec) + nbytes(*dec_args[2:]) // 256)
     compare(torch, rows, "decode_units_order0",
             lambda: decode_cuda.decode_units(*dec_args, n_out=du,
                                              markov=False),
             lambda: decode_cuda.decode_units_plain(*dec_args, n_out=du,
                                                    markov=False),
-            5, 1, "order0")
+            5, 1, "order0", bound_bytes=lambda out: read + nbytes(*out),
+            symbols_per_unit=du)
 
 
 def run_counted(torch, fn):
@@ -399,7 +500,7 @@ def phase_payload_route(torch, data: bytes, dev) -> None:
     require_launches("payload_route", launches,
                      {"lookup_cl": "once", "bubble_pack": "once",
                       "pack_units": "none", "pack_cl": "none",
-                      "decode_units": "once"})
+                      "decode_lut": "once", "decode_units": "once"})
     if engine.fetch_bytes(enc, out) != data:
         raise AssertionError("payload_route: round trip is not bit-exact")
     del out
@@ -587,8 +688,8 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this check runs only on a CUDA GPU")
     sys.path.insert(0, REPO)
-    from bench import make_corpus
     from mhc_tpu_torch.ops.kernels import _build
+    from mhc_tpu_torch.utils.corpus import make_corpus
     smi = phase_device(torch)
     phase_build(("histogram", "encode", "decode"))
     dev = torch.device("cuda:0")
@@ -598,7 +699,7 @@ def main() -> int:
     phase_kernels_order0(torch, data, dev, rows)
     markov_blob, launches = round_trip(
         torch, data, "markov", dev, "main_path",
-        {"markov_hist": "once", "pack_units": "once",
+        {"markov_hist": "once", "pack_units": "once", "decode_lut": "once",
          "decode_units": "once"}, REF_100MB_LEN, REF_100MB_SHA256)
     dense_launches = phase_split_path(
         torch, data, dev, "dense",
@@ -611,7 +712,8 @@ def main() -> int:
     order0_blob, order0_launches = round_trip(
         torch, data, "huffman", dev, "order0_path",
         {"order0_hist": "some", "pack_units": "some",
-         "decode_units_order0": "some", "markov_hist": "none"},
+         "decode_lut_order0": "some", "decode_units_order0": "some",
+         "markov_hist": "none"},
         REF_ORDER0_100MB_LEN, REF_ORDER0_100MB_SHA256)
     phase_order0_pallas(torch, data, dev)
     phase_host_bytes(torch, data, dev)
@@ -626,6 +728,7 @@ def main() -> int:
     # the order-0 path's launches are in its own line)
     path_of = {"order0_hist": order0_launches,
                "decode_units_order0": order0_launches,
+               "decode_lut_order0": order0_launches,
                "lookup_cl": dense_launches, "pack_cl": dense_launches,
                "bubble_pack": pallas_launches}
     for name, row in rows.items():

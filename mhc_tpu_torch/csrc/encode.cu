@@ -13,23 +13,32 @@
 // step-major symbols and fetches codes with one-hot MXU contractions over
 // rank tables, because Mosaic has no per-lane gather; on Hopper the
 // canonical tables sit in shared memory (u16 code + u8 length per
-// (prev, cur): 192 KB) and each thread reads its unit unit-major.
+// (prev, cur): 192 KB).
 //
 // Contract, per unit b: for j < n_valid[b], (code, len) =
 // table[prev][cur] with prev the unit's previous byte (0 at j = 0); codes
 // are concatenated MSB-first from bit 31 of word 0 of the unit's row;
-// bits[b] = sum of len. Rows arrive zeroed: words past the stream stay 0.
-// Equal word for word to bitpack.encode_blocks_merge and to the TPU
-// kernel.
+// bits[b] = sum of len. Rows arrive zeroed and hold at least the longest
+// stream, W >= ceil(n * 15 / 32) words (mhc_pack_units rejects fewer):
+// words past the stream stay 0; writes at index >= W are dropped. Equal
+// word for word to
+// bitpack.encode_blocks_merge and to the TPU kernel.
 //
-// Bound: a serial bit chain per unit, one unit per thread in blocks of
-// 128, and the 192 KB table allows one block per SM. The Markov main
-// path's 12,800 units make 100 blocks (100 of the H100's 132 SMs busy,
-// 4 warps each), the order-0 path's 6,400 units make 50 (82 SMs idle):
-// latency of the per-symbol chain (byte load, shared-memory lookup,
-// shift) on few SMs, not bandwidth, bounds it. Filling the SMs (smaller
-// blocks need the table once per SM, so several threads per unit:
-// lengths, prefix sum, placement) is the known next step.
+// Design: a warp per unit (PAPERS.md, arXiv 2010.10039). Encode has no
+// dependence between symbols but the bit offsets, so each lane owns a
+// contiguous chunk of the unit (a multiple of 16 bytes: 256 for 8 KB
+// units), sums its code lengths (pass 1), takes its bit offset from a
+// warp exclusive scan, and packs its chunk from there (pass 2) through
+// the BitAcc K4 and K6 use. Interior words go out in aligned 16-byte
+// quads; the two words a lane may share with its neighbours are merged
+// with atomicOr into the zeroed row. Lanes read their chunk 16 bytes at
+// a time. The 192 KB table allows one block per SM: a persistent grid of
+// one block of 32 warps per SM strides over the units, neighbouring
+// warps of a block on units gridDim.x apart, so a last partial round
+// spreads over the SMs. Bound: the bytes it moves (units in, coded words
+// out); with 32 units in flight per SM no unit's serial chain bounds it
+// any more, and the word stores, scattered over the lanes' chunks, cost
+// most.
 //
 // K5 replaces mhc_tpu/ops/kernels/lookup_pallas.py::lookup_cl_sm_pallas
 // (pallas_call at :278, body _lookup_kernel). The TPU kernel is
@@ -75,29 +84,110 @@ namespace {
 constexpr int kPackThreads = 128;
 constexpr int kLookupThreads = 1024;
 
-__global__ void __launch_bounds__(kPackThreads)
+// Calls f(prev, cur) for the symbols j0 <= j < j1 of `row`, in order;
+// vec: j0 and the row 16-byte aligned, so bytes arrive 16 at a time.
+template <class F>
+__device__ __forceinline__ void for_pairs(const uint8_t* __restrict__ row,
+                                          int j0, int j1, bool vec, F f) {
+  int prev = j0 ? __ldg(row + j0 - 1) : 0;
+  if (!vec) {
+    for (int j = j0; j < j1; ++j) {
+      const int cur = __ldg(row + j);
+      f(prev, cur);
+      prev = cur;
+    }
+    return;
+  }
+  for (int j = j0; j < j1; j += 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + j));
+    const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+    const int m = j1 - j;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      if (k < m) {
+        const int cur = (q[k >> 2] >> (8 * (k & 3))) & 0xFF;
+        f(prev, cur);
+        prev = cur;
+      }
+    }
+  }
+}
+
+constexpr int kPackWarps = 32;
+
+// chunk: symbols per lane, a multiple of 16; vec: n % 16 == 0 and units
+// 16-byte aligned.
+__global__ void __launch_bounds__(kPackWarps * 32)
 pack_units_kernel(const uint8_t* __restrict__ units,
-                  const int32_t* __restrict__ n_valid, int64_t R, int64_t n,
+                  const int32_t* __restrict__ n_valid, int64_t R, int n,
                   const uint16_t* __restrict__ codes16,
                   const uint8_t* __restrict__ lens8,
                   uint32_t* __restrict__ words, int64_t W,
-                  int32_t* __restrict__ bits) {
+                  int32_t* __restrict__ bits, int chunk, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const ClTable tab = ClTable::load(smem, codes16, lens8);
   __syncthreads();
 
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= R) return;
-  const int64_t nv = mhc_clamp(n_valid[b], 0, n);
-  const uint8_t* row = units + b * n;
-  BitPacker pk{words + b * W, W};
-  int prev = 0;
-  for (int64_t j = 0; j < nv; ++j) {
-    const int cur = __ldg(row + j);
-    pk.put(tab.cl(prev, cur));
-    prev = cur;
+  const int lane = threadIdx.x & 31;
+  for (int64_t b = (int64_t)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+       b < R; b += (int64_t)gridDim.x * kPackWarps) {
+    const int nv = (int)mhc_clamp(__ldg(n_valid + b), 0, n);
+    const uint8_t* row = units + b * n;
+    const int j0 = min(lane * chunk, nv);
+    const int j1 = min(j0 + chunk, nv);
+    // pass 1: the chunk's bits; a warp scan gives each lane its offset
+    int nbits = 0;
+    for_pairs(row, j0, j1, vec,
+              [&](int prev, int cur) { nbits += tab.len[(prev << 8) | cur]; });
+    int incl = nbits;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (lane == 31) bits[b] = incl;
+    if (nbits == 0) continue;
+    // pass 2: pack from the offset. The first word is shared with the
+    // lanes before when the offset is not word-aligned, the last
+    // (partial) one with the lanes after: both are merged by atomicOr
+    // after the loop. The words between go out 16 bytes at a time where
+    // an aligned quad of them is the lane's own: the lanes' chunks lie
+    // far apart in the row, so each store is a write request of its own
+    // (4-byte stores were most of the kernel's time: PERF.md, PR 4).
+    const int off = incl - nbits;
+    uint32_t* out = words + b * W;
+    const int64_t first = off >> 5;
+    const int64_t own = first + ((off & 31) != 0);  // first plain word
+    const uint32_t quad0 = (uint32_t)(b * W) & 3;    // out's offset in a quad
+    BitAcc a{};
+    a.nacc = off & 31;                         // zero bits of earlier lanes
+    int64_t wi = first;
+    uint32_t head = 0, q0 = 0, q1 = 0, q2 = 0, q3 = 0;  // q3: the last word
+    for_pairs(row, j0, j1, vec, [&](int prev, int cur) {
+      uint32_t word;
+      if (a.put(tab.cl(prev, cur), word)) {
+        head = wi < own ? word : head;
+        q0 = q1;
+        q1 = q2;
+        q2 = q3;
+        q3 = word;
+        const int64_t qs = wi - ((quad0 + wi) & 3);  // its quad's start
+        if (qs < own && wi >= own && wi < W) out[wi] = word;
+        if (qs >= own && qs + 3 == wi && wi < W)
+          *reinterpret_cast<uint4*>(out + qs) = make_uint4(q0, q1, q2, q3);
+        ++wi;
+      }
+    });
+    // the words after the last whole quad, when their quad is the lane's
+    const int64_t qs = wi - ((quad0 + wi) & 3);
+    if (qs >= own) {
+      if (wi - 1 >= qs && wi - 1 < W) out[wi - 1] = q3;
+      if (wi - 2 >= qs && wi - 2 < W) out[wi - 2] = q2;
+      if (wi - 3 >= qs && wi - 3 < W) out[wi - 3] = q1;
+    }
+    if (own > first && wi > first && first < W) atomicOr(out + first, head);
+    if (a.nacc > 0 && wi < W) atomicOr(out + wi, a.partial());
   }
-  bits[b] = pk.finish();
 }
 
 // vec: n % 4 == 0, units 4-byte and cl 16-byte aligned (checked by the
@@ -204,19 +294,28 @@ bubble_pack_kernel(const uint32_t* __restrict__ cl, int64_t R, int64_t n,
 
 }  // namespace
 
-// words: (R, W) uint32, zeroed by the caller; bits: (R,) int32.
-// codes16 / lens8: (256 * 256) canonical code and length per (prev, cur).
+// words: (R, W) uint32, zeroed by the caller, W >= ceil(n * 15 / 32);
+// bits: (R,) int32. codes16 / lens8: (256 * 256) canonical code and
+// length per (prev, cur).
 extern "C" int mhc_pack_units(const uint8_t* units, const int32_t* n_valid,
                               int64_t R, int64_t n, const uint16_t* codes16,
                               const uint8_t* lens8, uint32_t* words,
                               int64_t W, int32_t* bits,
                               cudaStream_t stream) {
+  // a unit's symbols and bit offsets are counted in 32 bits; a row holds
+  // the longest stream (a lane's quads are stored whole only below W)
+  if (n * 15 >= INT32_MAX || W < (n * 15 + 31) / 32)
+    return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(pack_units_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kClTableSmem);
-  const unsigned blocks = (unsigned)((R + kPackThreads - 1) / kPackThreads);
-  pack_units_kernel<<<blocks, kPackThreads, kClTableSmem, stream>>>(
-      units, n_valid, R, n, codes16, lens8, words, W, bits);
+  const int chunk = (int)((n + 32 * 16 - 1) / (32 * 16) * 16);
+  const bool vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(units) % 16 == 0;
+  const int64_t blocks = std::min<int64_t>(
+      mhc_num_sms(), (R + kPackWarps - 1) / kPackWarps);
+  pack_units_kernel<<<(unsigned)blocks, kPackWarps * 32, kClTableSmem,
+                      stream>>>(units, n_valid, R, (int)n, codes16, lens8,
+                                words, W, bits, chunk, vec);
   return (int)cudaGetLastError();
 }
 

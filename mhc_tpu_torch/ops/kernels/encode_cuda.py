@@ -13,9 +13,11 @@
 
 All four live in csrc/encode.cu (sm_90a) and share its table read and
 bit accumulator, so K4(K5(x)) equals K3(x) word for word, and so do K6's
-compacted words; the plain versions are composed the same way. K3, K4
-and K6 run one thread per unit, bounded by each unit's serial bit chain;
-K5 is bounded by device-memory bandwidth (see the source note).
+compacted words; the plain versions are composed the same way. K3
+splits each unit over a warp (per-lane chunks, a warp scan of their bit
+counts, then each lane packs from its offset); K4 and K6 run one thread
+per unit, bounded by each unit's serial bit chain; K5 is bounded by
+device-memory bandwidth (see the source note).
 """
 
 from __future__ import annotations

@@ -125,19 +125,21 @@ def test_gpu_container_equals_cpu_container(dev, mode, data):
     assert mhc_tpu_torch.decompress(blob, device=dev) == data
 
 
+_DEC = {"decode_lut": 1, "decode_units": 1}
+_DEC0 = {"decode_lut_order0": 1, "decode_units_order0": 1}
+
+
 @pytest.mark.parametrize("mode,pack_method,expected", [
-    ("markov", "fused", {"markov_hist": 1, "pack_units": 1,
-                         "decode_units": 1}),
+    ("markov", "fused", {"markov_hist": 1, "pack_units": 1, **_DEC}),
     ("markov", "dense", {"markov_hist": 1, "lookup_cl": 1, "pack_cl": 1,
-                         "decode_units": 1}),
-    ("huffman", "fused", {"order0_hist": 1, "pack_units": 1,
-                          "decode_units_order0": 1}),
+                         **_DEC}),
+    ("huffman", "fused", {"order0_hist": 1, "pack_units": 1, **_DEC0}),
     ("markov", "pallas", {"markov_hist": 1, "lookup_cl": 1,
-                          "bubble_pack": 1, "decode_units": 1}),
+                          "bubble_pack": 1, **_DEC}),
     ("huffman", "dense", {"order0_hist": 1, "lookup_cl": 1, "pack_cl": 1,
-                          "decode_units_order0": 1}),
+                          **_DEC0}),
     ("huffman", "pallas", {"order0_hist": 1, "lookup_cl": 1,
-                           "bubble_pack": 1, "decode_units_order0": 1})])
+                           "bubble_pack": 1, **_DEC0})])
 def test_launch_counters_count_kernel_launches(dev, mode, pack_method,
                                                expected):
     st = engine.stage(_data(50_000, 1), mode=mode, device=dev)
@@ -162,6 +164,71 @@ def test_chunked_api_and_hybrid_on_the_card(dev, monkeypatch, mode):
                                device=dev) == ref
         assert hybrid.decompress(ref, host_fraction=frac,
                                  device=dev) == data
+
+
+def _edge_lengths(kind: str, markov: bool, seed: int) -> np.ndarray:
+    """Code lengths of every symbol: "all15" (every code 15 bits: every
+    Markov window escapes) or "skewed" (zipf counts, long codes in
+    play)."""
+    shape = (256, 256) if markov else (256,)
+    if kind == "all15":
+        return np.full(shape, 15, np.uint8)
+    rng = np.random.default_rng(seed)
+    counts = rng.zipf(1.4, shape).astype(np.int64)
+    model = get_model("markov" if markov else "huffman")
+    return model.lengths_from_counts(np.minimum(counts, 1 << 30))
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+@pytest.mark.parametrize("kind", ["skewed", "all15"])
+@pytest.mark.parametrize("R,n", [(1, 8192), (7, 8192), (133, 512),
+                                 (300, 16384), (45, 1024), (5, 1000)])
+def test_k3_and_k7_edges_equal_plain_versions(dev, mode, kind, R, n):
+    """K3 (a warp per unit, lane chunks) and K7 (table-driven) at the
+    edges: n_valid of 0, 1, 31, 33, 257 and a last unit cut short; one
+    unit; R not a multiple of a block or of the warps of the grid; widths
+    off the 16-byte paths; all-15-bit codes."""
+    markov = mode == "markov"
+    rng = np.random.default_rng(R * n)
+    lengths = _edge_lengths(kind, markov, R + n)
+    model = get_model(mode)
+    t = model.tables_from_lengths(lengths, dev)
+    # both length sets code every symbol in every context
+    units = torch.from_numpy(
+        rng.integers(0, 256, (R, n), dtype=np.uint8)).to(dev)
+    nv = np.full(R, n, np.int32)
+    edges = [0, 1, 31, 33, 257, n - 5]
+    nv[: min(R, len(edges))] = [min(e, n) for e in edges][:R]
+    nv[-1] = min(nv[-1], n // 3 + 1)
+    nv = torch.from_numpy(nv).to(dev)
+    got = encode_cuda.pack_units(units, nv, t["codes"], t["lengths"])
+    torch.cuda.synchronize()
+    ref = encode_cuda.pack_units_plain(units, nv, t["codes"], t["lengths"])
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    words = got[0]
+    args = (nv, t["lim"], t["base"], t["first_code"], t["sorted_syms"])
+    out = decode_cuda.decode_units(words, *args, n_out=n, markov=markov)
+    torch.cuda.synchronize()
+    assert torch.equal(out, decode_cuda.decode_units_plain(
+        words, *args, n_out=n, markov=markov))
+    valid = torch.arange(n, device=dev)[None, :] < nv[:, None]
+    assert torch.equal(out[valid], units[valid])
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+@pytest.mark.parametrize("kind", ["skewed", "all15"])
+def test_decode_lut_equals_plain_version(dev, mode, kind):
+    markov = mode == "markov"
+    t = get_model(mode).tables_from_lengths(_edge_lengths(kind, markov, 3),
+                                            dev)
+    args = (t["lim"], t["base"], t["first_code"], t["sorted_syms"])
+    _build.LAUNCHES.clear()
+    lut = decode_cuda.decode_lut(*args, markov=markov)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_lut" if markov
+                           else "decode_lut_order0"] == 1
+    assert torch.equal(lut, decode_cuda.decode_lut_plain(*args,
+                                                         markov=markov))
 
 
 def test_failed_build_raises_instead_of_falling_back(dev, monkeypatch):
