@@ -14,9 +14,11 @@ calls, after building and checking every kernel those paths run:
      resources printed)
   3. kernels: each kernel vs its plain PyTorch version on its path's own
      inputs — exact equality (integer codec, tolerance 0), CUDA-event
-     times of both (minimum over repeated calls), the bound (bytes the
-     function must move over 3.35 TB/s, coded words counted as this
-     run's bits give them) and the library call over a prepared index
+     times (the kernel and the library call: per call over runs of 10
+     back to back; the plain version: single calls; minimum over the
+     runs), the bound (bytes the function must move over 3.35 TB/s,
+     coded words counted as this run's bits give them) and the library
+     call over a prepared index
      (K1 and K2: a bare `torch.bincount`; K5: one `torch.take`, checked
      equal to K5): K1, K3, K5, K4, K6, K7's table build and K7m
      on the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) and the
@@ -52,8 +54,9 @@ calls, after building and checking every kernel those paths run:
      reference container, bit-exact, wall seconds
   11. corrupt containers on the card: a payload bit flip, a truncation
      and a bad magic each raise ValueError, then a clean decode works
-  12. oracle: when `make -C oracle` builds, each container is no larger
-     than the single-core C++ oracle's (em for Markov, e0 for order-0)
+  12. oracle: `make -C oracle` builds the single-core C++ oracle (a
+     failed build fails the run), and each container is no larger than
+     the oracle's (em for Markov, e0 for order-0)
 Every phase prints one JSON line; any failure raises (non-zero exit, no
 final line). Before the last line come the `nvidia-smi` line and the
 `kernels` line; the last line is the device summary.
@@ -95,6 +98,7 @@ REF_100MB_SEG32M_SHA256 = ("3c1cf61d668bc69f88cbd09efb54a7ee"
 REF_4MB_SHA256 = ("54f0867e82f83dd27606e1a1df827687"
                   "846701316e48a2dc56f0a09f274bcc86")
 TIMED_REPS = 3
+KERNEL_BATCH = 10                # kernel and library calls per timed run
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces)
@@ -123,9 +127,11 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def min_ms(torch, fn, reps: int):
-    """(last result, minimum ms of `reps` calls after one warm-up call),
-    each call timed alone with CUDA events."""
+def min_ms(torch, fn, reps: int, batch: int = 1):
+    """(last result, ms per call): the minimum over `reps` runs of `batch`
+    calls back to back, after one warm-up call, CUDA events around each
+    run. A batch keeps the host's enqueue time of one call out of a short
+    kernel's time."""
     out = fn()
     best = float("inf")
     for _ in range(reps):
@@ -133,10 +139,11 @@ def min_ms(torch, fn, reps: int):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn()
+        for _ in range(batch):
+            out = fn()
         end.record()
         end.synchronize()
-        best = min(best, start.elapsed_time(end))
+        best = min(best, start.elapsed_time(end) / batch)
     return out, best
 
 
@@ -198,14 +205,15 @@ def compare(torch, rows: dict, name: str, kern, plain, reps: int,
     is held on each path's inputs: its row's numbers are the first
     path's, its max_abs_err the largest, and `on_inputs` has each
     comparison."""
-    got, ms = min_ms(torch, kern, reps)
+    got, ms = min_ms(torch, kern, reps, KERNEL_BATCH)
     ref, plain_ms = min_ms(torch, plain, plain_reps)
     got, ref = as_tuple(got), as_tuple(ref)
     err = max(max_abs_err(a, b) for a, b in zip(got, ref, strict=True))
     shapes = [list(t.shape) for t in got]
     moved = bound_bytes(got)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    library_ms = min_ms(torch, library, reps)[1] if library else None
+    library_ms = (min_ms(torch, library, reps, KERNEL_BATCH)[1] if library
+                  else None)
     extra = {"bound_ms": bound_ms, "bound_by": "bytes",
              "bound_bytes": moved, "share_of_bound": bound_ms / ms,
              "library_ms": library_ms}
@@ -668,8 +676,8 @@ def phase_oracle(blobs: dict, corpus_path: str) -> None:
                        capture_output=True, text=True, timeout=300)
     exe = os.path.join(REPO, "oracle", "mh_oracle")
     if r.returncode != 0 or not os.path.exists(exe):
-        emit("oracle", skipped="make -C oracle failed")
-        return
+        raise AssertionError(f"make -C oracle failed (exit {r.returncode}):"
+                             f" {(r.stdout + r.stderr)[-2000:]}")
     for mode, blob in blobs.items():
         res = subprocess.run([exe, "bench", mode, corpus_path],
                              capture_output=True, text=True, timeout=600,

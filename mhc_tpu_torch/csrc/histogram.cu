@@ -1,139 +1,354 @@
 // The histogram kernels over a (R, n) uint8 unit batch: K1, the Markov
 // (prev, cur) pair histogram, and K2, the order-0 byte histogram.
 //
-// K1:
-// Replaces mhc_tpu/ops/kernels/histogram_pallas.py::markov_hist_pallas
-// (pallas_call at :98, body _hist_kernel :32). The TPU kernel turns the
-// count into a one-hot MXU matmul because Mosaic has no scatter; on
-// Hopper the count is a shared-memory atomic increment per position.
+// K1 replaces mhc_tpu/ops/kernels/histogram_pallas.py::markov_hist_pallas
+// (pallas_call at :98, body _hist_kernel :32), K2 replaces
+// histogram_pallas.py::order0_hist_pallas (pallas_call at :167, body
+// _hist0_kernel :136). Mosaic has no scatter, so the TPU kernels count
+// with one-hot matrices (K1 on the MXU, K2 on the VPU); on Hopper a count
+// is a shared-memory atomic add.
 //
-// Contract: counts[prev][cur] over every position j < n_valid[b] of every
-// unit b, where prev is the unit's previous byte and 0 at j = 0 (the
-// Markov context resets per unit). Exact int32 counts.
+// Contracts. K1: counts[prev][cur] over every position j < n_valid[b] of
+// every unit b, where prev is the unit's previous byte and 0 at j = 0
+// (the Markov context resets per unit). K2: counts[c] = #{(b, j) :
+// j < n_valid[b], units[b][j] = c}. Exact int32 counts, added to an
+// output the caller zeroed (K1's 8-byte aligned).
 //
-// Bound: one pass over the input (1 byte per symbol read per prev half)
-// and one shared-memory atomic per symbol; skewed data (runs, zeros)
-// serialises the atomics of a warp on one bin. 65,536 int32 bins are
-// 256 KB, more than the 227 KB a block may hold, so the prev range is
-// split over gridDim.y = 2: each block keeps a 128 KB sub-histogram of
-// 128 prev rows and skips positions of the other half, then adds its
-// non-zero bins to the global (256, 256) table with atomics.
+// Bound. Both read the input once (105 MB on the main paths: 0.031 ms at
+// 3.35 TB/s) and do one shared-memory atomic per byte. K1's atomics
+// return a value, and those of a warp that hit one address then
+// serialise; the corpus makes many of them do so: little-endian u32
+// counters (every 4th byte 0, the 3rd and 2nd barely changing, so equal
+// pairs recur at one byte phase in every lane), a 64-byte pattern
+// repeated (lanes 4 apart load equal vectors), text.
 //
-// K2 replaces mhc_tpu/ops/kernels/histogram_pallas.py::order0_hist_pallas
-// (pallas_call at :167, body _hist0_kernel), which compares each byte
-// with a 256-wide iota and sums the one-hot rows on the VPU because
-// Mosaic has no scatter. Contract: counts[c] = #{(b, j) : j < n_valid[b],
-// units[b][j] = c}, exact int32.
+// Both run a grid of one wave and split the flat R x n/16 16-byte vectors
+// into equal shares, one per block (a unit's start resets the context
+// wherever it falls), so no block is left with a last unit to itself;
+// a warp loads 32 consecutive vectors at a time (coalesced). Where
+// n % 16 != 0 or the batch is not 16-byte aligned, a scalar path reads
+// byte by byte.
 //
-// Bound: it reads the input once (100 MB on the order-0 main path), so
-// device-memory bandwidth should bound it, as long as the shared-memory
-// atomics keep up. Each of a block's 8 warps counts into its own 256-bin
-// sub-histogram (8 x 1 KB), which spreads the atomics of the block over
-// 8 copies; a warp's atomics on one bin (runs, zeros) still serialise.
-// Blocks stride over units and read 16 bytes per thread per load where a
-// row allows it; at the end each block sums its 8 sub-histograms and adds
-// them to the global 256 bins with one atomic per non-zero bin. Exact
-// counts, so the order of the atomics does not matter.
+// K1 walks its share one vector per lane per step, the next step's vector
+// loaded before this one is counted. Every block holds the whole table,
+// so each byte is read once: 65,536 int32 bins (256 KB) do not fit a
+// block, so they are 16-bit counters, two to a word (bin prev*256+cur is
+// half cur & 1 of word bin >> 1, 128 KB), one 1024-thread block per SM.
+// A lane's first prev comes from the neighbouring lane (__shfl_up_sync),
+// lane 0's from the byte before its vector. Each word of a vector is
+// counted with its bytes rotated by (lane >> 2) & 3, so lanes at one step
+// count different byte phases: the counters' equal pairs no longer meet
+// at one address in every lane (PERF.md has the times with and without,
+// and of a rotation of the whole vector, no faster). The pairs come two
+// at a time from __byte_perm of the bytes and the bytes shifted by one.
+// A field that passes 0xFFFF is credited to the global table by the
+// atomic that wrapped it, read from the value that atomicAdd returns
+// (never by a second shared atomic: a repair by atomicSub races with a
+// carry into the other half). An increment of a field wraps it when the
+// field was 0xFFFF in the returned word `old`:
+// - a low field wrapped and carried 1 into the high field: the thread
+//   adds 65,536 to the low bin and -1 to the high bin, and when that carry
+//   wrapped the high field too (old >> 16 == 0xFFFF, the carry leaves the
+//   word) 65,536 more to the high bin;
+// - a high field wrapped: the thread adds 65,536 to the high bin.
+// At the end the block adds each field to its global bin.
+// Every add to the global table is one 64-bit atomic on the pair of bins
+// that a shared word holds (the even bin in the low half): the even bin
+// only ever receives non-negative adds, whose sum, its count, is below
+// 2^31, so no carry crosses into the odd bin, whose half adds modulo 2^32.
+// Why this is exact: a field's final value is the sum of what was added
+// to it (its increments, and for a high field the carries into it) less
+// 65,536 for each time it wrapped. Shared atomics on one word are
+// applied one at a time, each to the word that the one before it left,
+// and each returns that word: so every wrap and every carry is caused by
+// exactly one atomic, that atomic alone sees it in its return value, and
+// it credits it once. Summed over the blocks, global bin = increments +
+// carries - carries (the -1 of each carry) + 65,536 per wrap - 65,536 per
+// wrap = the count. Integer adds commute, so the order of the global
+// atomics does not matter.
+//
+// K2 walks its share unit segment by unit segment (one n_valid load per
+// segment), 256-thread blocks, eight per SM, one 256-bin copy per warp
+// (copy i at word 257 i, so one bin of neighbouring copies falls in
+// neighbouring banks); each block sums its copies and adds the non-zero
+// bins to the global 256 with one atomic each. A full vector's 16 atomics
+// go unpredicated: predicating each costs half again. Its atomics return
+// nothing, and a warp's same-address increments without a return value
+// cost little, so more copies per warp (more distinct addresses) and the
+// rotation that helps K1 lose here; so do two or four loads in flight
+// (PERF.md). The walk alone, its atomics removed, takes about the bytes
+// bound; the atomics take the rest.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kHalfRows = 128;              // prev rows per block
-constexpr int kBins = kHalfRows * 256;      // 32,768 int32 = 128 KB
-constexpr int kThreads = 1024;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int kThreads1 = 1024;           // K1: one block per SM
+constexpr int kWords1 = 256 * 256 / 2;    // K1: two 16-bit bins per word
+constexpr int kSmem1 = kWords1 * sizeof(uint32_t);
+constexpr int kThreads2 = 256;            // K2: eight blocks per SM
+constexpr int kBlocksPerSm2 = 2048 / kThreads2;
+constexpr int kCopies2 = kThreads2 / 32;  // K2: one 256-bin copy per warp
+constexpr int kStride2 = 257;             // K2: words between copies
 
-__global__ void __launch_bounds__(kThreads)
-markov_hist_kernel(const uint8_t* __restrict__ units,
-                   const int32_t* __restrict__ n_valid, int64_t R,
-                   int64_t n, int32_t* __restrict__ out) {
-  extern __shared__ int32_t bins[];
-  const int half = blockIdx.y;
-  for (int k = threadIdx.x; k < kBins; k += blockDim.x) bins[k] = 0;
-  __syncthreads();
+// The block's equal share [begin, end) of `total` items.
+__device__ __forceinline__ void block_share(int64_t total, int64_t& begin,
+                                            int64_t& end) {
+  begin = total * blockIdx.x / gridDim.x;
+  end = total * (blockIdx.x + 1) / gridDim.x;
+}
 
-  for (int64_t b = blockIdx.x; b < R; b += gridDim.x) {
-    const int64_t nv = mhc_clamp(n_valid[b], 0, n);
-    const uint8_t* row = units + b * n;
-    for (int64_t j = threadIdx.x; j < nv; j += blockDim.x) {
-      const int cur = __ldg(row + j);
-      const int prev = j ? __ldg(row + j - 1) : 0;
-      if ((prev >> 7) == half)
-        atomicAdd(&bins[((prev & (kHalfRows - 1)) << 8) | cur], 1);
+// Row and column of a flat index over rows of `width` items, moved
+// forward by a fixed step without a division per step.
+struct RowCursor {
+  int64_t row;
+  uint32_t col, width, step_rows, step_cols;
+  __device__ RowCursor(int64_t flat, uint32_t w, uint32_t step)
+      : row(flat / w), col((uint32_t)(flat % w)), width(w),
+        step_rows(step / w), step_cols(step % w) {}
+  __device__ __forceinline__ void advance() {
+    row += step_rows;
+    col += step_cols;
+    if (col >= width) {
+      col -= width;
+      ++row;
     }
   }
-  __syncthreads();
+};
 
-  int32_t* dst = out + (int64_t)half * kBins;
-  for (int k = threadIdx.x; k < kBins; k += blockDim.x) {
-    const int32_t v = bins[k];
-    if (v) atomicAdd(dst + k, v);
+// Walks the block's share of the flat 16-byte vectors of the batch and
+// calls f(vector, byte before it in its unit (0 at a unit's start), valid
+// positions 0..16). Lane l of warp w takes vector 32 w + l of each step.
+// Needs n % 16 == 0 and 16-byte alignment.
+template <class F>
+__device__ __forceinline__ void walk_vectors(
+    const uint8_t* __restrict__ units, const int32_t* __restrict__ n_valid,
+    int64_t R, int64_t n, F&& f) {
+  const uint4* units16 = reinterpret_cast<const uint4*>(units);
+  const uint32_t nq = (uint32_t)(n / 16);
+  int64_t begin, end;
+  block_share(R * nq, begin, end);
+  const int lane = threadIdx.x & 31;
+  const uint32_t step = blockDim.x;
+  const int64_t first = begin + (threadIdx.x & ~31u);  // the warp's first
+  RowCursor c(first + lane, nq, step);
+  // the vector at v + lane, and for lane 0 the byte before it
+  auto load = [&](int64_t v, uint4& q, uint32_t& before) {
+    const int64_t i = v + lane;
+    q = i < end ? __ldg(units16 + i) : make_uint4(0, 0, 0, 0);
+    before = lane == 0 && i < end && i > 0 ? __ldg(units + 16 * i - 1) : 0;
+  };
+  uint4 q;
+  uint32_t before = 0;
+  if (first < end) load(first, q, before);
+  for (int64_t v = first; v < end; v += step) {
+    uint4 q_next;
+    uint32_t before_next = 0;
+    if (v + step < end) load(v + step, q_next, before_next);
+    uint32_t prev = __shfl_up_sync(kFull, q.w >> 24, 1);
+    if (lane == 0) prev = before;
+    if (c.col == 0) prev = 0;
+    int m = 0;
+    if (v + lane < end) {
+      const int64_t nv = mhc_clamp(__ldg(n_valid + c.row), 0, n);
+      m = (int)mhc_clamp(nv - 16 * (int64_t)c.col, 0, 16);
+    }
+    f(q, prev, m);
+    c.advance();
+    q = q_next;
+    before = before_next;
   }
 }
 
-constexpr int kWarps0 = 8;
-constexpr int kThreads0 = kWarps0 * 32;
+// The scalar path: calls f(byte, byte before it in its unit) for each
+// valid position of the block's share, one per thread per step.
+template <class F>
+__device__ __forceinline__ void walk_bytes(
+    const uint8_t* __restrict__ units, const int32_t* __restrict__ n_valid,
+    int64_t R, int64_t n, F&& f) {
+  int64_t begin, end;
+  block_share(R * n, begin, end);
+  RowCursor c(begin + threadIdx.x, (uint32_t)n, blockDim.x);
+  for (int64_t p = begin + threadIdx.x; p < end; p += blockDim.x) {
+    if (c.col < mhc_clamp(__ldg(n_valid + c.row), 0, n)) {
+      const uint32_t prev = c.col ? __ldg(units + p - 1) : 0;
+      f((uint32_t)__ldg(units + p), prev);
+    }
+    c.advance();
+  }
+}
 
-__device__ __forceinline__ void count_word(int* hist, uint32_t w) {
-  atomicAdd(&hist[w & 0xFF], 1);
-  atomicAdd(&hist[(w >> 8) & 0xFF], 1);
-  atomicAdd(&hist[(w >> 16) & 0xFF], 1);
-  atomicAdd(&hist[w >> 24], 1);
+// Byte k of a vector.
+__device__ __forceinline__ uint32_t byte_of(const uint4& q, int k) {
+  const uint32_t w = k < 4 ? q.x : k < 8 ? q.y : k < 12 ? q.z : q.w;
+  return (w >> (8 * (k & 3))) & 0xFFu;
+}
+
+// ---------------------------------------------------------------------------
+// K1
+// ---------------------------------------------------------------------------
+
+// The global table as bin pairs: even bin in the low half.
+using Pairs = unsigned long long;
+
+// Credits the wrap of bin's 16-bit field by an increment of 1, given the
+// word `old` its atomicAdd returned (see the note at the top).
+__device__ __forceinline__ void credit_wrap(Pairs* __restrict__ out,
+                                            uint32_t bin, uint32_t old) {
+  const uint32_t odd = bin & 1 ? 65536u
+                       : (old >> 16) == 0xFFFFu ? 65535u : 0xFFFFFFFFu;
+  atomicAdd(out + (bin >> 1), (Pairs)odd << 32 | (bin & 1 ? 0u : 65536u));
+}
+
+__device__ __forceinline__ void count_pair(uint32_t* words,
+                                           Pairs* __restrict__ out,
+                                           uint32_t bin) {
+  const uint32_t sh = (bin & 1) << 4;
+  const uint32_t old = atomicAdd(words + (bin >> 1), 1u << sh);
+  if (((old >> sh) & 0xFFFFu) == 0xFFFFu) credit_wrap(out, bin, old);
+}
+
+// The 16 pairs of a full vector, each word's in lane-rotated order.
+__device__ __forceinline__ void count_pairs16(uint32_t* words,
+                                              Pairs* __restrict__ out,
+                                              const uint4& q, uint32_t prev) {
+  // bytes, and the bytes one position later (each byte's prev)
+  const uint32_t cur[4] = {q.x, q.y, q.z, q.w};
+  const uint32_t pre[4] = {q.x << 8 | prev, __funnelshift_l(q.x, q.y, 8),
+                           __funnelshift_l(q.y, q.z, 8),
+                           __funnelshift_l(q.z, q.w, 8)};
+  const int rot = 8 * ((threadIdx.x >> 2) & 3);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t c = __funnelshift_r(cur[j], cur[j], rot);
+    const uint32_t p = __funnelshift_r(pre[j], pre[j], rot);
+    // (prev << 8 | cur) of bytes 0, 1 and of bytes 2, 3
+    const uint32_t b01 = __byte_perm(c, p, 0x5140);
+    const uint32_t b23 = __byte_perm(c, p, 0x7362);
+    count_pair(words, out, b01 & 0xFFFFu);
+    count_pair(words, out, b01 >> 16);
+    count_pair(words, out, b23 & 0xFFFFu);
+    count_pair(words, out, b23 >> 16);
+  }
 }
 
 // vec: n % 16 == 0 and units 16-byte aligned (checked by the host).
-__global__ void __launch_bounds__(kThreads0)
-order0_hist_kernel(const uint8_t* __restrict__ units,
-                   const int32_t* __restrict__ n_valid, int64_t R,
-                   int64_t n, int32_t* __restrict__ out, bool vec) {
-  __shared__ int bins[kWarps0 * 256];
-  for (int k = threadIdx.x; k < kWarps0 * 256; k += blockDim.x) bins[k] = 0;
+__global__ void __launch_bounds__(kThreads1, 1)
+markov_hist_kernel(const uint8_t* __restrict__ units,
+                   const int32_t* __restrict__ n_valid, int64_t R, int64_t n,
+                   int32_t* __restrict__ out_bins, bool vec) {
+  extern __shared__ uint4 smem1[];
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem1);
+  Pairs* out = reinterpret_cast<Pairs*>(out_bins);
+  for (int i = threadIdx.x; i < kWords1 / 4; i += blockDim.x)
+    smem1[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  int* hist = bins + (threadIdx.x / 32) * 256;
-
-  for (int64_t b = blockIdx.x; b < R; b += gridDim.x) {
-    const int64_t nv = mhc_clamp(n_valid[b], 0, n);
-    const uint8_t* row = units + b * n;
-    int64_t done = 0;
-    if (vec) {
-      const uint4* row16 = reinterpret_cast<const uint4*>(row);
-      done = nv / 16 * 16;
-      for (int64_t q = threadIdx.x; q < nv / 16; q += blockDim.x) {
-        const uint4 v = __ldg(row16 + q);
-        count_word(hist, v.x);
-        count_word(hist, v.y);
-        count_word(hist, v.z);
-        count_word(hist, v.w);
+  if (vec)
+    walk_vectors(units, n_valid, R, n, [&](const uint4& q, uint32_t prev,
+                                           int m) {
+      if (m == 16) {
+        count_pairs16(words, out, q, prev);
+        return;
       }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const uint32_t cur = byte_of(q, k);
+        if (k < m) count_pair(words, out, prev << 8 | cur);
+        prev = cur;
+      }
+    });
+  else
+    walk_bytes(units, n_valid, R, n, [&](uint32_t cur, uint32_t prev) {
+      count_pair(words, out, prev << 8 | cur);
+    });
+  __syncthreads();
+  for (int w = threadIdx.x; w < kWords1; w += blockDim.x) {
+    const uint32_t x = words[w];
+    if (x) atomicAdd(out + w, (Pairs)(x >> 16) << 32 | (x & 0xFFFFu));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2
+// ---------------------------------------------------------------------------
+
+// The valid bytes of one vector (m of them) into a copy.
+__device__ __forceinline__ void count_bytes16(int32_t* copy, const uint4& q,
+                                              int m) {
+  if (m == 16) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) atomicAdd(copy + byte_of(q, k), 1);
+    return;
+  }
+  for (int k = 0; k < m; ++k) atomicAdd(copy + byte_of(q, k), 1);
+}
+
+// vec: as for K1.
+__global__ void __launch_bounds__(kThreads2, kBlocksPerSm2)
+order0_hist_kernel(const uint8_t* __restrict__ units,
+                   const int32_t* __restrict__ n_valid, int64_t R, int64_t n,
+                   int32_t* __restrict__ out, bool vec) {
+  __shared__ int32_t bins[kCopies2 * kStride2];
+  for (int i = threadIdx.x; i < kCopies2 * kStride2; i += blockDim.x)
+    bins[i] = 0;
+  __syncthreads();
+  int32_t* copy = bins + (threadIdx.x >> 5) * kStride2;
+  if (vec) {
+    const uint4* units16 = reinterpret_cast<const uint4*>(units);
+    const int64_t nq = n / 16;
+    int64_t begin, end;
+    block_share(R * nq, begin, end);
+    for (int64_t s = begin, row = begin / nq; s < end; ++row) {
+      const int64_t r0 = row * nq, r1 = r0 + nq < end ? r0 + nq : end;
+      const int64_t nv = mhc_clamp(__ldg(n_valid + row), 0, n);
+      const int64_t cut = r0 + nv / 16;  // the vector n_valid cuts, if any
+      for (int64_t v = s + threadIdx.x; v < cut && v < r1; v += blockDim.x)
+        count_bytes16(copy, __ldg(units16 + v), 16);
+      if (nv % 16 && cut >= s && cut < r1 && threadIdx.x == 0)
+        count_bytes16(copy, __ldg(units16 + cut), (int)(nv % 16));
+      s = r1;
     }
-    for (int64_t j = done + threadIdx.x; j < nv; j += blockDim.x)
-      atomicAdd(&hist[__ldg(row + j)], 1);
+  } else {
+    walk_bytes(units, n_valid, R, n, [&](uint32_t cur, uint32_t) {
+      atomicAdd(copy + cur, 1);
+    });
   }
   __syncthreads();
-
   for (int c = threadIdx.x; c < 256; c += blockDim.x) {
-    int v = 0;
+    int32_t v = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps0; ++w) v += bins[w * 256 + c];
+    for (int i = 0; i < kCopies2; ++i) v += bins[i * kStride2 + c];
     if (v) atomicAdd(out + c, v);
   }
 }
 
+// One wave of `per_sm` blocks per SM, fewer where the batch has fewer
+// steps of 16 bytes per thread.
+unsigned grid_for(int64_t R, int64_t n, int threads, int per_sm) {
+  const int64_t steps = (R * n + 16 * threads - 1) / (16 * threads);
+  return (unsigned)std::max<int64_t>(
+      1, std::min<int64_t>(steps, (int64_t)per_sm * mhc_num_sms()));
+}
+
+bool vectorised(const uint8_t* units, int64_t n) {
+  return n % 16 == 0 && reinterpret_cast<uintptr_t>(units) % 16 == 0;
+}
+
 }  // namespace
 
-// out: (256, 256) int32, zeroed by the caller.
+// out: (256, 256) int32, 8-byte aligned, zeroed by the caller.
 extern "C" int mhc_markov_hist(const uint8_t* units, const int32_t* n_valid,
                                int64_t R, int64_t n, int32_t* out,
                                cudaStream_t stream) {
-  const int smem = kBins * sizeof(int32_t);
+  if (R < 0 || n < 0 || n > INT32_MAX ||
+      reinterpret_cast<uintptr_t>(out) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(markov_hist_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  // one 128 KB block fits an SM: one wave of blocks over both halves
-  const int64_t gx =
-      std::max<int64_t>(1, std::min<int64_t>(R, mhc_num_sms() / 2));
-  dim3 grid((unsigned)gx, 2);
-  markov_hist_kernel<<<grid, kThreads, smem, stream>>>(units, n_valid, R, n,
-                                                       out);
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem1);
+  markov_hist_kernel<<<grid_for(R, n, kThreads1, 1), kThreads1, kSmem1,
+                       stream>>>(units, n_valid, R, n, out,
+                                 vectorised(units, n));
   return (int)cudaGetLastError();
 }
 
@@ -141,11 +356,9 @@ extern "C" int mhc_markov_hist(const uint8_t* units, const int32_t* n_valid,
 extern "C" int mhc_order0_hist(const uint8_t* units, const int32_t* n_valid,
                                int64_t R, int64_t n, int32_t* out,
                                cudaStream_t stream) {
-  const bool vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(units) % 16 == 0;
-  // enough 256-thread blocks to fill every SM several times over
-  const int64_t blocks =
-      std::max<int64_t>(1, std::min<int64_t>(R, 8 * (int64_t)mhc_num_sms()));
-  order0_hist_kernel<<<(unsigned)blocks, kThreads0, 0, stream>>>(
-      units, n_valid, R, n, out, vec);
+  if (R < 0 || n < 0 || n > INT32_MAX) return (int)cudaErrorInvalidValue;
+  order0_hist_kernel<<<grid_for(R, n, kThreads2, kBlocksPerSm2), kThreads2,
+                       0, stream>>>(units, n_valid, R, n, out,
+                                    vectorised(units, n));
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,22 @@
 """K1 and K2 — the Markov (prev, cur) and order-0 byte histograms: CUDA
 kernel wrappers + plain versions.
 
-Kernels: csrc/histogram.cu (sm_90a). K1 replaces
-mhc_tpu/ops/kernels/histogram_pallas.py::markov_hist_pallas and is
-bounded by shared-memory atomics (one per symbol, serialised on skewed
-data) over one read of the input per half of the prev range. K2 replaces
-histogram_pallas.py::order0_hist_pallas: per-warp sub-histograms over one
-read of the input. See the source note.
+Kernels: csrc/histogram.cu (sm_90a). Both read the input once, 16 bytes
+per lane, over a one-wave grid whose blocks take equal shares of the flat
+positions, and do one shared-memory atomic per byte.
+
+K1 replaces mhc_tpu/ops/kernels/histogram_pallas.py::markov_hist_pallas.
+It is bounded by its atomics, which return a value and so serialise where
+a warp's pairs meet at one address. Every block holds the whole table as
+65,536 16-bit counters, and lanes count the bytes of each word in rotated
+orders, so equal pairs at one byte phase meet less. A counter that wraps
+is credited to the global table by the atomic that wrapped it, from the
+value that atomic returned; the source note proves the counts exact.
+
+K2 replaces histogram_pallas.py::order0_hist_pallas: a 256-bin copy per
+warp, its walk about as fast as the bytes bound and its atomics the rest.
+
+The output of both is zeroed here, as the kernels require.
 """
 
 from __future__ import annotations

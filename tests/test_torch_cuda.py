@@ -85,14 +85,16 @@ def test_kernels_equal_plain_versions(dev, mode, n, block, du):
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
 @pytest.mark.parametrize("n", [1022, 1021])
 def test_unaligned_widths_equal_plain_versions(dev, mode, n):
-    """Unit widths off the kernels' vector paths (K2: n % 16, K5 and K4:
-    n % 4), on raw unit batches with ragged n_valid."""
+    """Unit widths off the kernels' vector paths (K1 and K2: n % 16, K5
+    and K4: n % 4), on raw unit batches with ragged n_valid."""
     model = get_model(mode)
     rng = np.random.default_rng(n)
     u = torch.from_numpy(np.frombuffer(_data(37 * n, n), np.uint8)
                          .reshape(37, n).copy()).to(dev)
     nv = torch.from_numpy(
         rng.integers(0, n + 1, 37).astype(np.int32)).to(dev)
+    assert torch.equal(histogram_cuda.markov_hist(u, nv),
+                       histogram_cuda.markov_hist_plain(u, nv))
     assert torch.equal(histogram_cuda.order0_hist(u, nv),
                        histogram_cuda.order0_hist_plain(u, nv))
     counts = model.histogram(u, nv).cpu().numpy()
@@ -108,6 +110,53 @@ def test_unaligned_widths_equal_plain_versions(dev, mode, n):
     for a, b in zip(encode_cuda.bubble_pack(cl),
                     encode_cuda.bubble_pack_plain(cl)):
         assert torch.equal(a, b)
+
+
+def _assert_histograms_equal_plain(u, nv):
+    for kern, plain in ((histogram_cuda.markov_hist,
+                         histogram_cuda.markov_hist_plain),
+                        (histogram_cuda.order0_hist,
+                         histogram_cuda.order0_hist_plain)):
+        got = kern(u, nv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(u, nv))
+
+
+@pytest.mark.parametrize("pattern", ["zeros", "001", "ff", "counters"])
+def test_histograms_count_past_16_bits(dev, pattern):
+    """40 rows of 8 KB per SM, so that each of K1's blocks counts more
+    than 2^16 of one pair in its 16-bit fields: zeros (pair (0, 0), the
+    low half of word 0), [0, 0, 1] repeated ((0, 0) and (0, 1) share a
+    word: both halves wrap), 0xFF (the high half of the last word), and
+    the corpus's little-endian u32 counters."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    R, n = 40 * sms, 8192
+    if pattern == "counters":
+        flat = torch.from_numpy(np.arange(0x7F0000, 0x7F0000 + R * n // 4,
+                                          dtype="<u4").view(np.uint8))
+    else:
+        unit = {"zeros": [0], "001": [0, 0, 1], "ff": [255]}[pattern]
+        flat = torch.tensor(unit, dtype=torch.uint8).repeat(R * n)[:R * n]
+    u = flat.to(dev).view(R, n)
+    nv = torch.full((R,), n, dtype=torch.int32, device=dev)
+    _assert_histograms_equal_plain(u, nv)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [4096, 1021])
+def test_histograms_on_offset_views_and_short_units(dev, offset, n):
+    """K1 and K2 on a units view `offset` bytes into a larger buffer (a
+    1-byte offset takes the scalar path, as n = 1021 does), with n_valid
+    of 0, 1, 15, 16, 17 and ragged; the flat shares of the grid split
+    units wherever they fall."""
+    R = 300
+    rng = np.random.default_rng(n + offset)
+    buf = torch.from_numpy(np.frombuffer(_data(R * n + offset, n),
+                                         np.uint8).copy()).to(dev)
+    u = buf[offset:].view(R, n)
+    nv = rng.integers(0, n + 1, R).astype(np.int32)
+    nv[:6] = [0, 1, 15, 16, 17, n]
+    _assert_histograms_equal_plain(u, torch.from_numpy(nv).to(dev))
 
 
 @pytest.mark.parametrize("mode", ["markov", "huffman"])

@@ -50,6 +50,23 @@ def test_histogram_matches_pallas_interpret():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("unit", [[0], [0, 0, 1]], ids=["zeros", "001"])
+def test_histogram_past_16_bits_matches_jax_matmul(unit):
+    """24 units of 4 KB of zeros: pair (0, 0) counted 98,304 times; 72 of
+    [0, 0, 1] repeated: (0, 0) and (0, 1), the two halves of one of K1's
+    words on the card, each past 2^16: the count range that K1's 16-bit
+    fields carry into the global table."""
+    R = 24 * len(unit)
+    units = np.resize(np.array(unit, np.uint8), R * 4096).reshape(R, 4096)
+    nv = np.full(R, 4096, np.int32)
+    ref = np.asarray(histogram.histogram_markov(
+        jnp.asarray(units), jnp.asarray(nv), method="matmul"))
+    assert ref[0, 0] > 1 << 16 and (len(unit) == 1 or ref[0, 1] > 1 << 16)
+    got = histogram_cuda.markov_hist_plain(torch.from_numpy(units),
+                                           torch.from_numpy(nv))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_histogram_context_reset_and_mask():
     units = torch.tensor([[1, 2, 3, 9], [4, 5, 7, 7]], dtype=torch.uint8)
     nv = torch.tensor([3, 2], dtype=torch.int32)
