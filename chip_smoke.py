@@ -22,9 +22,10 @@ calls, after building and checking every kernel those paths run:
      (K1 and K2: a bare `torch.bincount`; K5: one `torch.take`, checked
      equal to K5): K1, K3, K5, K4, K6, K7's table build and K7m
      on the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) and the
-     compacted K6(K5(x)) == K3(x); K2, K3 (again, in the same row), K7's
-     order-0 table build and K7o on the order-0 inputs (6,400 units of
-     16 KB)
+     compacted K6(K5(x)) == K3(x); K4 and K6 again on the payload route's
+     inputs (1,600 units of 64 KB), with the same two checks; K2, K3 and
+     K6 (again, in the same rows), K7's order-0 table build and K7o on
+     the order-0 inputs (6,400 units of 16 KB)
   4. main path (Markov): engine.stage -> encode -> decode -> fetch_bytes
      with the launch counters reset before and read after (K1, K3, K7's
      table build and K7m once each); bit-exact
@@ -53,7 +54,11 @@ calls, after building and checking every kernel those paths run:
   10. hybrid: hybrid.compress / decompress at host_fraction 0.5, the
      reference container, bit-exact, wall seconds
   11. corrupt containers on the card: a payload bit flip, a truncation
-     and a bad magic each raise ValueError, then a clean decode works
+     and a bad magic each raise ValueError, and so does the payload
+     route's container with its length index rewritten so that unit 0
+     claims the whole payload, before anything is allocated for it
+     (`torch.cuda.max_memory_allocated()` printed before and after);
+     then a clean decode works
   12. oracle: `make -C oracle` builds the single-core C++ oracle (a
      failed build fails the run), and each container is no larger than
      the oracle's (em for Markov, e0 for order-0)
@@ -197,7 +202,7 @@ def compare(torch, rows: dict, name: str, kern, plain, reps: int,
             plain_reps: int, inputs: str = "markov", bound_bytes=None,
             library=None, symbols_per_unit=None):
     """Kernel `name` vs its plain version on one path's inputs
-    ("markov" or "order0"), tolerance 0; records the comparison in the
+    ("markov", "payload_route" or "order0"), tolerance 0; records the comparison in the
     kernel's row and returns the kernel's outputs. bound_bytes(outputs)
     gives the bytes the function must move; `library` is one PyTorch call
     computing the same function (timed only); symbols_per_unit gives the
@@ -264,12 +269,46 @@ def decode_lut_checks(torch, rows: dict, t: dict, markov: bool) -> None:
             bound_bytes=lambda out: read + nbytes(*out))
 
 
+def cl_packers_checks(torch, rows: dict, cl, fused, inputs: str,
+                      dense: bool = True) -> None:
+    """K4 (with `dense`) and K6 on the cl plane of one path's inputs
+    against their plain versions, and K4's words and the compacted K6's
+    against K3's `fused` (words, bits) of the same units. The 419 MB
+    planes of one comparison are freed before the next."""
+    from mhc_tpu_torch.ops import bitpack
+    from mhc_tpu_torch.ops.kernels import encode_cuda
+    if dense:
+        split = compare(torch, rows, "pack_cl",
+                        lambda: encode_cuda.pack_cl(cl),
+                        lambda: encode_cuda.pack_cl_plain(cl), 5, 2, inputs,
+                        bound_bytes=lambda out: (nbytes(cl, out[1])
+                                                 + coded_bytes(out[1])))
+        same = all(torch.equal(a, b)
+                   for a, b in zip(split, fused, strict=True))
+        emit("kernel", check="pack_cl(lookup_cl(x)) == pack_units(x)",
+             inputs=inputs, words_and_bits_equal=same)
+        if not same:
+            raise AssertionError(f"K4(K5(x)) differs from K3(x) on the "
+                                 f"{inputs} inputs")
+        del split
+    bubbles = compare(torch, rows, "bubble_pack",
+                      lambda: encode_cuda.bubble_pack(cl),
+                      lambda: encode_cuda.bubble_pack_plain(cl), 5, 1, inputs,
+                      bound_bytes=lambda out: nbytes(cl, *out))
+    words = bitpack.compact_bubbles(*bubbles, fused[0].shape[1])
+    same = torch.equal(words, fused[0]) and torch.equal(bubbles[3], fused[1])
+    emit("kernel", check="compact_bubbles(bubble_pack(lookup_cl(x))) == "
+         "pack_units(x)", inputs=inputs, words_and_bits_equal=same)
+    if not same:
+        raise AssertionError("the compacted K6(K5(x)) differs from K3(x) "
+                             f"on the {inputs} inputs")
+
+
 def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
     """K1, K3, K5, K4, K6 and K7m against their plain versions on the
     Markov main path's inputs."""
     from mhc_tpu_torch import engine
     from mhc_tpu_torch.models.entropy import MARKOV
-    from mhc_tpu_torch.ops import bitpack
     from mhc_tpu_torch.ops.kernels import (decode_cuda, encode_cuda,
                                            histogram_cuda)
     st = engine.stage(data, device=dev)
@@ -308,28 +347,8 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
     if not same:
         raise AssertionError("K5's library call differs from K5")
     del idx
-    split = compare(torch, rows, "pack_cl",
-                    lambda: encode_cuda.pack_cl(cl),
-                    lambda: encode_cuda.pack_cl_plain(cl), 5, 2,
-                    bound_bytes=lambda out: (nbytes(cl, out[1])
-                                             + coded_bytes(out[1])))
-    same = all(torch.equal(a, b) for a, b in zip(split, fused, strict=True))
-    emit("kernel", check="pack_cl(lookup_cl(x)) == pack_units(x)",
-         words_and_bits_equal=same)
-    if not same:
-        raise AssertionError("K4(K5(x)) differs from K3(x)")
-    del split
-    bubbles = compare(torch, rows, "bubble_pack",
-                      lambda: encode_cuda.bubble_pack(cl),
-                      lambda: encode_cuda.bubble_pack_plain(cl), 5, 1,
-                      bound_bytes=lambda out: nbytes(cl, *out))
-    words = bitpack.compact_bubbles(*bubbles, fused[0].shape[1])
-    same = torch.equal(words, fused[0]) and torch.equal(bubbles[3], fused[1])
-    emit("kernel", check="compact_bubbles(bubble_pack(lookup_cl(x))) == "
-         "pack_units(x)", words_and_bits_equal=same)
-    if not same:
-        raise AssertionError("the compacted K6(K5(x)) differs from K3(x)")
-    del cl, fused, bubbles, words
+    cl_packers_checks(torch, rows, cl, fused, "markov")
+    del cl, fused
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     du = enc.decode_unit
@@ -345,9 +364,26 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
             symbols_per_unit=du)
 
 
+def phase_kernels_payload_route(torch, data: bytes, dev, rows: dict) -> None:
+    """K5 -> K4 and K5 -> K6 against their plain versions on the payload
+    route's inputs: Markov, 1,600 units of 64 KB."""
+    from mhc_tpu_torch import engine
+    from mhc_tpu_torch.models.entropy import MARKOV
+    from mhc_tpu_torch.ops.kernels import encode_cuda
+    torch.cuda.empty_cache()
+    st = engine.stage(data, decode_unit=65536, device=dev)
+    u, nv = st.units, st.n_valid
+    t = MARKOV.tables_from_lengths(
+        MARKOV.lengths_from_counts(engine.histogram(st)), dev)
+    tab = (t["codes"], t["lengths"])
+    fused = encode_cuda.pack_units(u, nv, *tab)
+    cl = encode_cuda.lookup_cl(u, nv, *tab)
+    cl_packers_checks(torch, rows, cl, fused, "payload_route")
+
+
 def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
-    """K2, K3 and K7o against their plain versions on the order-0 path's
-    inputs (K3 with the broadcast order-0 tables)."""
+    """K2, K3, K6 and K7o against their plain versions on the order-0
+    path's inputs (K3 and K5 with the broadcast order-0 tables)."""
     from mhc_tpu_torch import engine
     from mhc_tpu_torch.models.entropy import ORDER0
     from mhc_tpu_torch.ops.kernels import (decode_cuda, encode_cuda,
@@ -365,12 +401,17 @@ def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
     lengths = ORDER0.lengths_from_counts(counts.cpu().numpy())
     t = ORDER0.tables_from_lengths(lengths, dev)
     tab = (t["codes"], t["lengths"])
-    compare(torch, rows, "pack_units",
-            lambda: encode_cuda.pack_units(u, nv, *tab),
-            lambda: encode_cuda.pack_units_plain(u, nv, *tab), 5, 2,
-            "order0", bound_bytes=lambda out: (nbytes(u, nv, *tab, out[1])
-                                               + coded_bytes(out[1])),
-            symbols_per_unit=u.shape[1])
+    fused = compare(
+        torch, rows, "pack_units",
+        lambda: encode_cuda.pack_units(u, nv, *tab),
+        lambda: encode_cuda.pack_units_plain(u, nv, *tab), 5, 2,
+        "order0", bound_bytes=lambda out: (nbytes(u, nv, *tab, out[1])
+                                           + coded_bytes(out[1])),
+        symbols_per_unit=u.shape[1])
+    cl = encode_cuda.lookup_cl(u, nv, *tab)
+    cl_packers_checks(torch, rows, cl, fused, "order0", dense=False)
+    del cl, fused
+    torch.cuda.empty_cache()
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     du = enc.decode_unit
@@ -493,9 +534,10 @@ def phase_split_path(torch, data: bytes, dev, pack_method: str,
     return launches
 
 
-def phase_payload_route(torch, data: bytes, dev) -> None:
+def phase_payload_route(torch, data: bytes, dev) -> bytes:
     """Markov 100 MB with decode_unit == block_size through
-    pack_method="pallas": K6's bubble stream straight to the payload."""
+    pack_method="pallas": K6's bubble stream straight to the payload.
+    Returns the container."""
     from mhc_tpu_torch import engine
     torch.cuda.empty_cache()
 
@@ -522,6 +564,7 @@ def phase_payload_route(torch, data: bytes, dev) -> None:
          sha256=hashlib.sha256(blob).hexdigest())
     check_container("payload_route", blob, REF_100MB_DU64K_LEN,
                     REF_100MB_DU64K_SHA256)
+    return blob
 
 
 def phase_order0_pallas(torch, data: bytes, dev) -> None:
@@ -644,9 +687,32 @@ def phase_hybrid(torch, data: bytes, dev) -> None:
          decompress_s=d, container_bytes=len(blob))
 
 
-def phase_corrupt(torch, blob: bytes, data: bytes, dev) -> None:
+def claim_whole_payload(blob: bytes) -> bytes:
+    """A container of the legacy layout (one u32 bit length per unit)
+    with its index rewritten so that unit 0 claims the whole payload and
+    every other unit nothing: the payload size, and so the parse, stay
+    as they were."""
+    import numpy as np
+    from mhc_tpu_torch import container
+    meta = container.parse_container(blob)
+    if meta.decode_unit is not None:
+        raise AssertionError("claim_whole_payload: not the legacy layout")
+    index = np.zeros(meta.n_blocks, "<u4")
+    index[0] = 8 * int(meta.byte_lengths.sum())
+    start = meta.payload_off - meta.index_bytes
+    bad = blob[:start] + index.tobytes() + blob[meta.payload_off:]
+    if container.parse_container(bad).payload_off != meta.payload_off:
+        raise AssertionError("claim_whole_payload: the parse changed")
+    return bad
+
+
+def phase_corrupt(torch, blob: bytes, data: bytes, du64k_blob: bytes,
+                  dev) -> None:
     """Damaged containers decoded on the card raise ValueError, with no
-    CUDA error, and the card decodes cleanly afterwards."""
+    CUDA error, and the card decodes cleanly afterwards. The payload
+    route's container whose unit 0 claims the whole payload (1,600 rows
+    of 20.9 M words, were its length believed) raises before anything is
+    allocated for it."""
     from mhc_tpu_torch import api, container
     meta = container.parse_container(blob)
     flipped = bytearray(blob)
@@ -665,9 +731,28 @@ def phase_corrupt(torch, blob: bytes, data: bytes, dev) -> None:
         else:
             raise AssertionError(f"corrupt {name}: decoded without error")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.max_memory_allocated()
+    try:
+        api.decompress(claim_whole_payload(du64k_blob), device=dev)
+    except ValueError as e:
+        if "unit length" not in str(e):
+            raise AssertionError(f"corrupt unit_claims_payload: {e}") from e
+        seen["unit_claims_payload"] = str(e)
+    else:
+        raise AssertionError("corrupt unit_claims_payload: decoded without "
+                             "error")
+    torch.cuda.synchronize()
+    after = torch.cuda.max_memory_allocated()
+    if after - before > 1 << 20:
+        raise AssertionError(f"corrupt unit_claims_payload: {after - before}"
+                             " bytes were allocated before the error")
     if api.decompress(blob, device=dev) != data:
         raise AssertionError("corrupt: the clean decode afterwards failed")
-    emit("corrupt", errors=seen, clean_decode_after=True)
+    emit("corrupt", errors=seen, clean_decode_after=True,
+         unit_claims_payload_max_memory_allocated={"before": before,
+                                                   "after": after})
 
 
 def phase_oracle(blobs: dict, corpus_path: str) -> None:
@@ -704,6 +789,7 @@ def main() -> int:
     data = make_corpus(CORPUS_BYTES)
     rows: dict = {}
     phase_kernels_markov(torch, data, dev, rows)
+    phase_kernels_payload_route(torch, data, dev, rows)
     phase_kernels_order0(torch, data, dev, rows)
     markov_blob, launches = round_trip(
         torch, data, "markov", dev, "main_path",
@@ -716,7 +802,7 @@ def main() -> int:
         torch, data, dev, "pallas",
         {"lookup_cl": "once", "bubble_pack": "once", "pack_units": "none",
          "pack_cl": "none"})
-    phase_payload_route(torch, data, dev)
+    du64k_blob = phase_payload_route(torch, data, dev)
     order0_blob, order0_launches = round_trip(
         torch, data, "huffman", dev, "order0_path",
         {"order0_hist": "some", "pack_units": "some",
@@ -730,7 +816,7 @@ def main() -> int:
         f.write(data)
     phase_cli(corpus_path, data)
     phase_hybrid(torch, data, dev)
-    phase_corrupt(torch, markov_blob, data, dev)
+    phase_corrupt(torch, markov_blob, data, du64k_blob, dev)
     phase_oracle({"em": markov_blob, "e0": order0_blob}, corpus_path)
     # each kernel's launches on the path that runs it (K3: the main path;
     # the order-0 path's launches are in its own line)

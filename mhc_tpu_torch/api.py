@@ -47,9 +47,9 @@ DEFAULT_DECODE_UNIT = 8192
 DEFAULT_DECODE_UNIT_ORDER0 = 16384
 # Input bytes per chunk of compress / decompress (rounded down to whole
 # decode units). The reference's 16 MB came from TPU VMEM and compile
-# limits. Here the pack and decode kernels run one thread per unit, so a
-# chunk is as many threads as units (16 MB of 8 KB units: 2,048, 16
-# blocks of 128 for 132 SMs), and each chunk costs the kernels' full
+# limits. Here the decode kernel runs one thread per unit and the pack
+# kernels one warp, so a chunk is as many threads or warps as units (16
+# MB of 8 KB units: 2,048), and each chunk costs the kernels' full
 # serial chain and a table build: larger chunks fill more SMs, smaller
 # ones overlap more copying with kernels. On an H100 (PERF.md), 64 MB
 # was the fastest of 16 to 96 MB at 100 MB of input, in both modes and
@@ -251,6 +251,8 @@ def decompress(blob: bytes, verify: bool = True, device=None) -> bytes:
     if R != -(-meta.orig_len // du):
         raise ValueError("mhc: corrupt container (unit count)")
     aligned = bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD)
+    # before any upload or allocation
+    engine.check_unit_lengths(byte_lens, du, aligned)
     starts = meta.payload_off + np.concatenate(
         [[0], np.cumsum(byte_lens)]).astype(np.int64)
     src = np.frombuffer(blob, dtype=np.uint8)

@@ -62,7 +62,7 @@ struct ClTable {
 };
 
 // ---------------------------------------------------------------------------
-// MSB-first bit accumulator of one unit stream, as K3, K4 and K6 build it:
+// MSB-first bit accumulator of one unit stream, as K3 builds it:
 // codes are concatenated from bit 31 of word 0, and each 32-bit word is
 // handed out as it completes. A code is at most 15 bits and fewer than 32
 // bits are pending before a put, so one put completes at most one word.
@@ -92,26 +92,24 @@ struct BitAcc {
   }
 };
 
-// The packer of K3 and K4: each full word is stored as it completes, the
-// partial tail word by finish(). Rows arrive zeroed, so words past the
-// stream stay 0; writes at index >= W are dropped.
-struct BitPacker {
-  uint32_t* out;
-  int64_t W;
-  BitAcc a{};
-  int64_t wi = 0;
+// ---------------------------------------------------------------------------
+// cp.async: copies from global to shared memory that no register waits
+// for. A thread commits its copies in groups and waits until at most
+// kPending of its groups are still in flight.
+// ---------------------------------------------------------------------------
 
-  __device__ __forceinline__ void put(uint32_t cl) {
-    uint32_t word;
-    if (a.put(cl, word)) {
-      if (wi < W) out[wi] = word;
-      ++wi;
-    }
-  }
-
-  // Stores the tail word; returns the stream's bit count.
-  __device__ __forceinline__ int32_t finish() {
-    if (a.nacc > 0 && wi < W) out[wi] = a.partial();
-    return a.total;
-  }
-};
+// 16 bytes to the shared-memory address `dst`; !valid copies nothing and
+// writes 16 zero bytes (src must still be an address of the allocation).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  // reads of the copied bytes must not move above the wait
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}

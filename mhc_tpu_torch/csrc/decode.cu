@@ -136,14 +136,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const uint32_t* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 4 : 0));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  // the ring's reads must not move above the wait
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // The next 64 bits of a unit's stream, MSB-aligned (`nb` >= 32 of them
 // valid at every symbol), the word after them in `nxt`, and the ring.

@@ -3,10 +3,10 @@
 // plane) or by K6 (bubble-stream pack of a cl plane). A "cl plane" holds
 // len << 16 | code for every symbol.
 //
-// K3 and K5 read the (prev, cur) table through the same ClTable, and K3,
-// K4 and K6 accumulate bits through the same BitAcc (common.cuh), so K3
-// equals K5 followed by K4 word for word, and compacting K6's bubble
-// stream gives the same words, by construction.
+// K3 and K5 read the (prev, cur) table through the same ClTable
+// (common.cuh), and K4 and K6 are one tile packer: K3 equals K5 followed
+// by K4 word for word, and compacting K6's bubble stream gives the same
+// words.
 //
 // K3 replaces mhc_tpu/ops/kernels/encode_pallas.py::pack_blocks_fused_sm
 // (pallas_call at :711, body _fused_kernel :545). The TPU kernel reads
@@ -29,7 +29,7 @@
 // contiguous chunk of the unit (a multiple of 16 bytes: 256 for 8 KB
 // units), sums its code lengths (pass 1), takes its bit offset from a
 // warp exclusive scan, and packs its chunk from there (pass 2) through
-// the BitAcc K4 and K6 use. Interior words go out in aligned 16-byte
+// a BitAcc (common.cuh). Interior words go out in aligned 16-byte
 // quads; the two words a lane may share with its neighbours are merged
 // with atomicOr into the zeroed row. Lanes read their chunk 16 bytes at
 // a time. The 192 KB table allows one block per SM: a persistent grid of
@@ -52,36 +52,54 @@
 // K4 replaces mhc_tpu/ops/kernels/encode_pallas.py::pack_blocks_dense
 // (pallas_call at :291, body _pack_dense_kernel), whose lane window and
 // group flushes exist because a TPU lane cannot store to its own
-// address. Here one thread packs one unit's cl row with the BitPacker,
-// in blocks of 128 (100 blocks at the Markov main path: at least 32 of
-// 132 SMs get none). Neighbouring threads read rows n * 4 bytes apart, so its
-// loads are not coalesced (each thread reads its row 16 bytes at a
-// time): with the idle SMs, the first thing a faster K4 changes; the
-// serial bit chain is as in K3.
+// address. K6 replaces encode_pallas.py::_run_bubble_pack (pallas_call at
+// :375, body _pack_kernel; reached through pack_blocks_pallas and
+// pack_blocks_to_payload). Per unit, each round appends two codes and
+// hands out at most one word (two codes are at most 30 bits): round r
+// writes (word, valid) to slot r of the unit's bubble stream, and at a
+// round that completes no word the slot holds the pending bits
+// MSB-aligned, as the TPU kernel's `word = a0` does. The TPU kernel wrote
+// every round to a dense row because a lane cannot store to its own
+// address; here the bubble planes are kept for the contract, and the
+// compaction after the kernel (ops/bitpack.py) is what K4 avoids.
 //
-// K6 replaces mhc_tpu/ops/kernels/encode_pallas.py::_run_bubble_pack
-// (pallas_call at :375, body _pack_kernel; reached through
-// pack_blocks_pallas and pack_blocks_to_payload). Per unit, each round
-// appends two codes and hands out at most one word (two codes are at most
-// 30 bits): round r writes (word, valid) to slot r of the unit's bubble
-// stream, and at a round that completes no word the slot holds the
-// pending bits MSB-aligned, as the TPU kernel's `word = a0` does. The TPU
-// kernel wrote every round to a dense row because a lane cannot store to
-// its own address; here the bubble planes are kept for the contract, and
-// the compaction after the kernel (ops/bitpack.py) is what K4 avoids. One
-// thread per unit, as K4: the row is read 16 bytes at a time, and the
-// planes are stored round-major (slot (r, b) at r * R + b), so a warp's 32
-// stores of a round fall on 128 contiguous bytes of bw and 32 of bv. It
-// writes 5 bytes per round (262 MB of bubble planes for the 419 MB cl
-// plane of the Markov main path), but the serial bit chain per unit on
-// 100 of 132 SMs bounds it, as K4. A later PR would fill the idle SMs, as
-// for K4, or drop the bubble planes for K4's direct stores.
+// Both are one kernel, pack_tiles_kernel: a warp per unit, walking the
+// unit's cl row in tiles of 128 symbols. They read 4 bytes per symbol
+// (419 MB at the 100 MB main path) and device-memory bandwidth bounds
+// them, so the row is read once, every load and store contiguous across
+// the warp:
+// - lane l takes the 16 bytes (4 symbols, 2 rounds) at tile + 16 l: 512 B
+//   per warp load, copied ahead into a per-warp ring of tiles in shared
+//   memory by cp.async (a lane reads back only what it copied, so the
+//   ring needs no barrier; a load to a register would stall the warp);
+// - a lane joins its 4 codes (at most 60 bits), a warp scan of the
+//   lanes' bit counts plus the bits pending from the tile before gives
+//   its bit offset in the tile's stream, and it ORs its bits into at most
+//   3 words of a staging buffer in shared memory (atomicOr: neighbouring
+//   lanes share words). A tile's stream is at most 31 + 1920 bits: 61
+//   words;
+// - K4: the finished words leave 4 bytes per lane, contiguous across the
+//   warp, at the unit's running word index; K6: a lane reads its two
+//   rounds' slots back from the staging words (a completed word is stream
+//   word `before >> 5`, whole there whichever lane or tile began it; an
+//   incomplete one is word `after >> 5` cut to its top `after & 31` bits)
+//   and stores them unit-major, 8 + 2 bytes per lane, 256 + 64 B per
+//   warp;
+// - the pending bits (< 32) go from tile to tile in a register: lane 0
+//   ORs them into word 0 of the next tile's staging buffer. Three staging
+//   buffers take turns, so one __syncwarp per tile is enough: a buffer is
+//   zeroed a tile after it was read and used a tile after that.
+// No table is needed, so a block is 4 warps with 10 KB of shared memory
+// and many blocks share an SM; the payload route's 1,600 units of 64 KB
+// are 1,600 warps, 12 per SM, each with 3 tiles in flight.
+// K3 keeps its BitAcc; K4(K5(x)) == K3(x) and the compacted K6 are held
+// by the checks on the card and by the replay of this algorithm in
+// plain torch (tests/test_torch_tiled_pack.py).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kPackThreads = 128;
 constexpr int kLookupThreads = 1024;
 
 // Calls f(prev, cur) for the symbols j0 <= j < j1 of `row`, in order;
@@ -232,64 +250,169 @@ lookup_cl_kernel(const uint8_t* __restrict__ units,
   }
 }
 
-// vec: n % 4 == 0 and cl 16-byte aligned, so a row is read 16 bytes at a
-// time.
-__global__ void __launch_bounds__(kPackThreads)
-pack_cl_kernel(const uint32_t* __restrict__ cl, int64_t R, int64_t n,
-               uint32_t* __restrict__ words, int64_t W,
-               int32_t* __restrict__ bits, bool vec) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= R) return;
+// The tile packer of K4 (kBubble false) and K6 (true).
+constexpr int kTileWarps = 4;     // units per block
+constexpr int kTileSyms = 128;    // symbols per tile: 16 bytes per lane
+constexpr int kTileStages = 4;    // ring of tiles per warp, a power of two
+constexpr int kStageWords = 64;   // >= the 61 stream words a tile can touch
+
+// kVec: n % 4 == 0 and cl 16-byte aligned (for K6 also bw 8-byte and bv
+// 2-byte aligned), so a lane's 4 symbols are one 16-byte copy and its two
+// slots one 8-byte and one 2-byte store; otherwise scalar loads and
+// stores, symbols past n read as zero-length codes.
+template <bool kBubble, bool kVec>
+__global__ void __launch_bounds__(kTileWarps * 32)
+pack_tiles_kernel(const uint32_t* __restrict__ cl, int64_t R, int n,
+                  uint32_t* __restrict__ words, int64_t W,
+                  uint32_t* __restrict__ bw, uint8_t* __restrict__ bv,
+                  uint32_t* __restrict__ tail, int32_t* __restrict__ bits) {
+  __shared__ __align__(16) uint4 s_ring[kTileWarps][kTileStages][32];
+  __shared__ uint32_t s_stage[kTileWarps][3][kStageWords];
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t b = (int64_t)blockIdx.x * kTileWarps + warp;
+  if (b >= R) return;  // whole warps leave; the kernel has no block barrier
   const uint32_t* row = cl + b * n;
-  BitPacker pk{words + b * W, W};
-  if (vec) {
-    const uint4* row4 = reinterpret_cast<const uint4*>(row);
-    for (int64_t q = 0; q < n / 4; ++q) {
-      const uint4 v = __ldg(row4 + q);
-      pk.put(v.x);
-      pk.put(v.y);
-      pk.put(v.z);
-      pk.put(v.w);
-    }
-  } else {
-    for (int64_t j = 0; j < n; ++j) pk.put(__ldg(row + j));
+  const int tiles = (n + kTileSyms - 1) / kTileSyms;
+  const int rounds = (n + 1) / 2;
+  uint32_t* out = kBubble ? bw + b * rounds : words + b * W;
+  uint8_t* flags = kBubble ? bv + b * rounds : nullptr;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    s_stage[warp][k][lane] = 0;
+    s_stage[warp][k][lane + 32] = 0;
   }
-  bits[b] = pk.finish();
+  __syncwarp();
+
+  const uint32_t ring_s =
+      (uint32_t)__cvta_generic_to_shared(&s_ring[warp][0][lane]);
+  // Starts the copy of tile t's 16 bytes of this lane; a tile past the
+  // row, or a lane past n, copies nothing and reads back zeros. Commits a
+  // group either way, so that group k is tile k.
+  auto fetch = [&](int t) {
+    if (kVec) {
+      const int j = t * kTileSyms + lane * 4;
+      const bool ok = t < tiles && j < n;
+      cp_async16(ring_s + (t & (kTileStages - 1)) * (32 * 16),
+                 row + (ok ? j : 0), ok);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kTileStages - 1; ++t) fetch(t);
+
+  int wbase = 0;      // the row's word index of staging word 0
+  int carry = 0;      // bits pending from the tiles before, < 32
+  uint32_t pend = 0;  // those bits, MSB-aligned
+  int total = 0;
+  for (int t = 0; t < tiles; ++t) {
+    fetch(t + kTileStages - 1);
+    cp_async_wait<kTileStages - 1>();
+    const int j = t * kTileSyms + lane * 4;
+    uint4 v;
+    if (kVec) {
+      v = s_ring[warp][t & (kTileStages - 1)][lane];
+    } else {
+      v.x = j < n ? __ldg(row + j) : 0u;
+      v.y = j + 1 < n ? __ldg(row + j + 1) : 0u;
+      v.z = j + 2 < n ? __ldg(row + j + 2) : 0u;
+      v.w = j + 3 < n ? __ldg(row + j + 3) : 0u;
+    }
+    // the lane's two rounds: codes (x, y) and (z, w), each at most 30 bits
+    const int la = (int)(v.x >> 16) + (int)(v.y >> 16);
+    const int lb = (int)(v.z >> 16) + (int)(v.w >> 16);
+    const uint32_t pa = ((v.x & 0xFFFFu) << (v.y >> 16)) | (v.y & 0xFFFFu);
+    const uint32_t pb = ((v.z & 0xFFFFu) << (v.w >> 16)) | (v.w & 0xFFFFu);
+    const int len = la + lb;
+    int incl = len;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += up;
+    }
+    const int tile_bits = __shfl_sync(kFull, incl, 31);
+    const int off = carry + incl - len;  // bit offset in the staging words
+    uint32_t* cur = s_stage[warp][t % 3];
+    {
+      // the lane's bits MSB-aligned in 64, then shifted to bit off & 31 of
+      // three words; lane 0 (off == carry) brings the pending bits along
+      const uint64_t x =
+          len ? (((uint64_t)pa << lb) | pb) << (64 - len) : 0ull;
+      const int s = off & 31;
+      uint32_t* w = cur + (off >> 5);
+      const uint32_t w0 = (uint32_t)(x >> (32 + s)) | (lane == 0 ? pend : 0u);
+      if (w0) atomicOr(w, w0);
+      if (s + len > 32) atomicOr(w + 1, (uint32_t)(x >> s));
+      if (s + len > 64) atomicOr(w + 2, (uint32_t)(x << (32 - s)));
+    }
+    __syncwarp();
+    const int end = carry + tile_bits;  // bits in the staging words
+    const int nw = end >> 5;            // whole words among them, <= 60
+    pend = cur[nw];
+    if (kBubble) {
+      // slot of a round from bit `before` to bit `after`: the word it
+      // completes, else its pending bits
+      const int mid = off + la, last = mid + lb;
+      const bool va = (mid >> 5) > (off >> 5), vb = (last >> 5) > (mid >> 5);
+      const uint32_t sa =
+          va ? cur[off >> 5] : cur[mid >> 5] & ~(kFull >> (mid & 31));
+      const uint32_t sb =
+          vb ? cur[mid >> 5] : cur[last >> 5] & ~(kFull >> (last & 31));
+      const int r = j >> 1;
+      if (kVec) {
+        if (j < n) {
+          *reinterpret_cast<uint2*>(out + r) = make_uint2(sa, sb);
+          *reinterpret_cast<uchar2*>(flags + r) =
+              make_uchar2((unsigned char)va, (unsigned char)vb);
+        }
+      } else {
+        if (r < rounds) {
+          out[r] = sa;
+          flags[r] = (uint8_t)va;
+        }
+        if (r + 1 < rounds) {
+          out[r + 1] = sb;
+          flags[r + 1] = (uint8_t)vb;
+        }
+      }
+    } else {
+      // rows arrive zeroed; writes at index >= W are dropped
+      const uint32_t u0 = cur[lane], u1 = cur[lane + 32];
+      if (lane < nw && wbase + lane < W) out[wbase + lane] = u0;
+      if (lane + 32 < nw && wbase + lane + 32 < W) out[wbase + lane + 32] = u1;
+    }
+    // the buffer of the tile before: every lane read it before the barrier
+    uint32_t* prev = s_stage[warp][(t + 2) % 3];
+    prev[lane] = 0;
+    prev[lane + 32] = 0;
+    wbase += nw;
+    carry = end & 31;
+    total += tile_bits;
+  }
+  if (lane == 0) {
+    if (kBubble)
+      tail[b] = pend;
+    else if (carry > 0 && wbase < W)
+      out[wbase] = pend;
+    bits[b] = total;
+  }
 }
 
-// vec: n % 4 == 0 and cl 16-byte aligned, so a row is read 16 bytes (two
-// rounds) at a time. bw and bv are round-major: slot (r, b) at r * R + b.
-__global__ void __launch_bounds__(kPackThreads)
-bubble_pack_kernel(const uint32_t* __restrict__ cl, int64_t R, int64_t n,
-                   uint32_t* __restrict__ bw, uint8_t* __restrict__ bv,
-                   uint32_t* __restrict__ tail, int32_t* __restrict__ bits,
-                   bool vec) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= R) return;
-  const uint32_t* row = cl + b * n;
-  BitAcc a{};
-  auto put_round = [&](int64_t r, uint32_t c0, uint32_t c1) {
-    uint32_t w0 = 0, w1 = 0;
-    const bool e0 = a.put(c0, w0);
-    const bool e1 = a.put(c1, w1);
-    bw[r * R + b] = e0 ? w0 : (e1 ? w1 : a.partial());
-    bv[r * R + b] = (uint8_t)(e0 || e1);
-  };
-  if (vec) {
-    const uint4* row4 = reinterpret_cast<const uint4*>(row);
-    for (int64_t q = 0; q < n / 4; ++q) {
-      const uint4 v = __ldg(row4 + q);
-      put_round(2 * q, v.x, v.y);
-      put_round(2 * q + 1, v.z, v.w);
-    }
-  } else {
-    // an odd n's last round takes a zero-length second code
-    for (int64_t r = 0; 2 * r < n; ++r)
-      put_round(r, __ldg(row + 2 * r),
-                2 * r + 1 < n ? __ldg(row + 2 * r + 1) : 0u);
-  }
-  tail[b] = a.partial();
-  bits[b] = a.total;
+// The four instances share one launch; a unit's symbols and bit offsets
+// are counted in 32 bits.
+template <bool kBubble>
+int launch_pack_tiles(const uint32_t* cl, int64_t R, int64_t n,
+                      uint32_t* words, int64_t W, uint32_t* bw, uint8_t* bv,
+                      uint32_t* tail, int32_t* bits, bool vec,
+                      cudaStream_t stream) {
+  if (n * 15 >= INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((R + kTileWarps - 1) / kTileWarps);
+  auto kern = vec ? pack_tiles_kernel<kBubble, true>
+                  : pack_tiles_kernel<kBubble, false>;
+  kern<<<blocks, kTileWarps * 32, 0, stream>>>(cl, R, (int)n, words, W, bw,
+                                               bv, tail, bits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -345,21 +468,19 @@ extern "C" int mhc_pack_cl(const uint32_t* cl, int64_t R, int64_t n,
                            cudaStream_t stream) {
   const bool vec =
       n % 4 == 0 && reinterpret_cast<uintptr_t>(cl) % 16 == 0;
-  const unsigned blocks = (unsigned)((R + kPackThreads - 1) / kPackThreads);
-  pack_cl_kernel<<<blocks, kPackThreads, 0, stream>>>(cl, R, n, words, W,
-                                                       bits, vec);
-  return (int)cudaGetLastError();
+  return launch_pack_tiles<false>(cl, R, n, words, W, nullptr, nullptr,
+                                  nullptr, bits, vec, stream);
 }
 
-// cl: (R, n) uint32; bw: (ceil(n / 2), R) uint32 and bv: (ceil(n / 2), R)
-// uint8, round-major, every slot written; tail, bits: (R,).
+// cl: (R, n) uint32; bw: (R, ceil(n / 2)) uint32 and bv: (R, ceil(n / 2))
+// uint8, unit-major, every slot written; tail, bits: (R,).
 extern "C" int mhc_bubble_pack(const uint32_t* cl, int64_t R, int64_t n,
                                uint32_t* bw, uint8_t* bv, uint32_t* tail,
                                int32_t* bits, cudaStream_t stream) {
-  const bool vec =
-      n % 4 == 0 && reinterpret_cast<uintptr_t>(cl) % 16 == 0;
-  const unsigned blocks = (unsigned)((R + kPackThreads - 1) / kPackThreads);
-  bubble_pack_kernel<<<blocks, kPackThreads, 0, stream>>>(cl, R, n, bw, bv,
-                                                           tail, bits, vec);
-  return (int)cudaGetLastError();
+  const bool vec = n % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(cl) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(bw) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(bv) % 2 == 0;
+  return launch_pack_tiles<true>(cl, R, n, nullptr, 0, bw, bv, tail, bits,
+                                 vec, stream);
 }

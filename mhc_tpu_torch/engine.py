@@ -37,6 +37,7 @@ from . import api, container
 from .config import resolve_device
 from .models.entropy import get_model
 from .ops import bitpack
+from .ops.huffman import MAX_CODE_LEN
 from .ops.kernels import decode_cuda, encode_cuda
 
 # the reference's `pack_method` values the port carries
@@ -173,16 +174,32 @@ def _offsets(lens: np.ndarray) -> np.ndarray:
     return out
 
 
+def check_unit_lengths(byte_lens: np.ndarray, du: int,
+                       aligned: bool) -> None:
+    """Raises ValueError when a unit's container-layout length is over the
+    longest stream the encoder can write for a `du`-byte unit: the
+    stream row's words_for_block(du) words (aligned layout) or ceil(du *
+    15 / 8) bytes (unaligned); a literal unit, du bytes, is shorter than
+    both. A length index rewritten to claim more must not size the
+    expansion buffer."""
+    worst = (bitpack.words_for_block(du) * 4 if aligned
+             else -(-du * MAX_CODE_LEN // 8))
+    if len(byte_lens) and int(np.max(byte_lens)) > worst:
+        raise ValueError("mhc: corrupt container (unit length)")
+
+
 def decode_inputs(enc: EncodeResult):
     """What decode hands K7: (words (R, W) int32 zero-padded streams,
     n_dec (R,) int32 symbols to decode — 0 for literal units — host
-    literal mask (R,) bool, canonical tables)."""
+    literal mask (R,) bool, canonical tables). W is at most
+    words_for_block(decode_unit) + 1: a longer unit raises ValueError."""
     model = get_model(enc.mode)
     dev = enc.payload.device
     du = enc.decode_unit
     R = enc.n_units
-    tables = model.tables_from_lengths(enc.lengths, dev)
     byte_lens = np.asarray(enc.byte_lens, np.int64)
+    check_unit_lengths(byte_lens, du, enc.aligned)
+    tables = model.tables_from_lengths(enc.lengths, dev)
     if enc.bit_lens is None and not enc.aligned:
         # parsed unaligned container: byte-granular expansion (K12)
         W = int(-(-byte_lens.max() // 4)) + 1 if R else 1

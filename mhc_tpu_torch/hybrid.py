@@ -147,6 +147,10 @@ def decompress(blob: bytes, verify: bool = True, host_fraction: float = 0.5,
     R = len(meta.byte_lengths)
     if R != -(-meta.orig_len // du):
         raise ValueError("mhc: corrupt container (unit count)")
+    # both halves size their rows by the encoder's longest stream
+    engine.check_unit_lengths(
+        meta.byte_lengths, du,
+        bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD))
     S = _device_units(R, host_fraction)
     starts = np.zeros(R + 1, np.int64)
     np.cumsum(meta.byte_lengths.astype(np.int64), out=starts[1:])

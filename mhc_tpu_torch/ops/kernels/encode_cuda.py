@@ -11,13 +11,15 @@
   valid) slot per round of two codes; replaces
   encode_pallas.py::_run_bubble_pack. `ops/bitpack.py` compacts its output.
 
-All four live in csrc/encode.cu (sm_90a) and share its table read and
-bit accumulator, so K4(K5(x)) equals K3(x) word for word, and so do K6's
-compacted words; the plain versions are composed the same way. K3
-splits each unit over a warp (per-lane chunks, a warp scan of their bit
-counts, then each lane packs from its offset); K4 and K6 run one thread
-per unit, bounded by each unit's serial bit chain; K5 is bounded by
-device-memory bandwidth (see the source note).
+All four live in csrc/encode.cu (sm_90a). K4(K5(x)) equals K3(x) word
+for word, and so do K6's compacted words; the plain versions are
+composed the same way. K3 splits each unit over a warp (per-lane chunks,
+a warp scan of their bit counts, then each lane packs from its offset);
+K4 and K6 are one tile packer, a warp per unit walking the cl row in
+tiles of 128 symbols (a warp scan of the lanes' bit counts, the bits
+ORed into stream words staged in shared memory, K6's slots read back
+from those words); K4, K5 and K6 are bounded by device-memory bandwidth
+(see the source note).
 """
 
 from __future__ import annotations
@@ -212,9 +214,9 @@ def bubble_pack(cl: torch.Tensor):
     (R, ceil(n/2)) uint8 0/1, tail (R,) int32, bits (R,) int32): slot r of
     a unit is the word its round r (codes 2r and 2r + 1) completes, with
     bv 1, or else its pending bits MSB-aligned, with bv 0; tail is the
-    pending bits after the last round, bits the stream's length. CPU
-    tensors take the plain version; CUDA tensors launch K6, and bw and bv
-    are then transposed views of its round-major planes."""
+    pending bits after the last round, bits the stream's length; bw and
+    bv are contiguous, unit-major. CPU tensors take the plain version;
+    CUDA tensors launch K6."""
     if _check_cl(cl) == "cpu":
         return bubble_pack_plain(cl)
     lib, fn = _build.load("encode", "mhc_bubble_pack", _BUBBLE_ARGTYPES)
@@ -222,13 +224,13 @@ def bubble_pack(cl: torch.Tensor):
     rounds = (n + 1) // 2
     dev = cl.device
     # the kernel writes every element
-    bw = torch.empty((rounds, R), dtype=torch.int32, device=dev)
-    bv = torch.empty((rounds, R), dtype=torch.uint8, device=dev)
+    bw = torch.empty((R, rounds), dtype=torch.int32, device=dev)
+    bv = torch.empty((R, rounds), dtype=torch.uint8, device=dev)
     tail = torch.empty((R,), dtype=torch.int32, device=dev)
     bits = torch.empty((R,), dtype=torch.int32, device=dev)
     if R == 0:
-        return bw.t(), bv.t(), tail, bits
+        return bw, bv, tail, bits
     rc = fn(cl.data_ptr(), R, n, bw.data_ptr(), bv.data_ptr(),
             tail.data_ptr(), bits.data_ptr(), _build.stream_ptr(dev))
     _build.launched(lib, rc, "bubble_pack")
-    return bw.t(), bv.t(), tail, bits
+    return bw, bv, tail, bits

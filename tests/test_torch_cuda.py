@@ -264,6 +264,98 @@ def test_k3_and_k7_edges_equal_plain_versions(dev, mode, kind, R, n):
     assert torch.equal(out[valid], units[valid])
 
 
+def _tile_case(dev, kind: str, R: int, n: int):
+    """Random units under `kind` Markov tables, rows of n_valid 0 between
+    full rows and a last unit cut short: (units, n_valid, codes,
+    lengths, cl plane)."""
+    rng = np.random.default_rng(R * n + 1)
+    t = get_model("markov").tables_from_lengths(
+        _edge_lengths(kind, True, R + n), dev)
+    units = torch.from_numpy(
+        rng.integers(0, 256, (R, n), dtype=np.uint8)).to(dev)
+    nv = np.full(R, n, np.int32)
+    nv[1::3] = 0
+    if R > 1:
+        nv[-1] = n // 3 + 1
+    nv = torch.from_numpy(nv).to(dev)
+    cl = encode_cuda.lookup_cl(units, nv, t["codes"], t["lengths"])
+    return units, nv, t["codes"], t["lengths"], cl
+
+
+def _assert_tile_packers(cl, k3):
+    """K4 and K6 on `cl` equal their plain versions, and K4 and the
+    compacted K6 equal K3's (words, bits)."""
+    k4 = encode_cuda.pack_cl(cl)
+    k6 = encode_cuda.bubble_pack(cl)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b)
+               for a, b in zip(k4, encode_cuda.pack_cl_plain(cl)))
+    assert all(torch.equal(a, b) for a, b in zip(k4, k3))
+    assert k6[0].is_contiguous() and k6[1].is_contiguous()
+    assert all(torch.equal(a, b)
+               for a, b in zip(k6, encode_cuda.bubble_pack_plain(cl)))
+    assert torch.equal(bitpack.compact_bubbles(*k6, k3[0].shape[1]), k3[0])
+    assert torch.equal(k6[3], k3[1])
+
+
+@pytest.mark.parametrize("kind", ["skewed", "all15"])
+@pytest.mark.parametrize("n", [4, 12, 510, 8192, 65536])
+@pytest.mark.parametrize("R", [1, 31, 33, 257])
+def test_k4_and_k6_tiles_equal_plain_versions_and_k3(dev, kind, R, n):
+    """The tile packer (a warp per unit, 128 symbols per tile) at its
+    edges: one unit, R off the block's 4 warps, n below a tile, off the
+    16-byte path (510), 64 and 512 tiles; rows of zeros between full
+    rows; all-15-bit codes (a word completes almost every second code)."""
+    units, nv, codes, lengths, cl = _tile_case(dev, kind, R, n)
+    _assert_tile_packers(cl, encode_cuda.pack_units(units, nv, codes,
+                                                    lengths))
+
+
+@pytest.mark.parametrize("kind", ["skewed", "all15"])
+@pytest.mark.parametrize("n", [12, 8192])
+def test_k4_and_k6_on_a_4_byte_offset_view(dev, kind, n):
+    """A cl plane 4 bytes into its buffer is off the 16-byte copies:
+    the scalar path."""
+    units, nv, codes, lengths, cl = _tile_case(dev, kind, 33, n)
+    buf = torch.empty(cl.numel() + 1, dtype=torch.int32, device=dev)
+    view = buf[1:].view(cl.shape)
+    view.copy_(cl)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    _assert_tile_packers(view, encode_cuda.pack_units(units, nv, codes,
+                                                      lengths))
+
+
+def test_k4_drops_words_past_a_narrow_row(dev):
+    """The C contract: writes at index >= W are dropped, row by row."""
+    _, _, _, _, cl = _tile_case(dev, "all15", 5, 1024)
+    ref, ref_bits = encode_cuda.pack_cl_plain(cl)
+    lib, fn = _build.load("encode", "mhc_pack_cl",
+                          encode_cuda._PACK_CL_ARGTYPES)
+    for W in (100, 1):
+        words = torch.zeros((5, W), dtype=torch.int32, device=dev)
+        bits = torch.empty((5,), dtype=torch.int32, device=dev)
+        rc = fn(cl.data_ptr(), 5, 1024, words.data_ptr(), W,
+                bits.data_ptr(), _build.stream_ptr(dev))
+        _build.check(lib, rc, "pack_cl")
+        torch.cuda.synchronize()
+        assert torch.equal(words, ref[:, :W]) and torch.equal(bits, ref_bits)
+
+
+def test_k4_and_k6_reject_units_past_32_bit_offsets(dev):
+    """n * 15 must stay below 2^31, as for K3."""
+    n = (1 << 31) // 15 + 1
+    dummy = torch.zeros(16, dtype=torch.int32, device=dev)
+    lib, fn = _build.load("encode", "mhc_pack_cl",
+                          encode_cuda._PACK_CL_ARGTYPES)
+    assert fn(dummy.data_ptr(), 1, n, dummy.data_ptr(), 1, dummy.data_ptr(),
+              _build.stream_ptr(dev)) != 0
+    lib, fn = _build.load("encode", "mhc_bubble_pack",
+                          encode_cuda._BUBBLE_ARGTYPES)
+    assert fn(dummy.data_ptr(), 1, n, dummy.data_ptr(), dummy.data_ptr(),
+              dummy.data_ptr(), dummy.data_ptr(),
+              _build.stream_ptr(dev)) != 0
+
+
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
 @pytest.mark.parametrize("kind", ["skewed", "all15"])
 def test_decode_lut_equals_plain_version(dev, mode, kind):
