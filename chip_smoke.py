@@ -16,21 +16,29 @@ calls, after building and checking every kernel those paths run:
      inputs — exact equality (integer codec, tolerance 0), CUDA-event
      times (the kernel and the library call: per call over runs of 10
      back to back; the plain version: single calls; minimum over the
-     runs), the bound (bytes the function must move over 3.35 TB/s,
-     coded words counted as this run's bits give them) and the library
-     call over a prepared index
+     runs), the bound (the bytes the function must move over 3.35 TB/s,
+     coded words counted as this run's bits give them; K11's chain floor
+     beside it) and the library call over a prepared index
      (K1 and K2: a bare `torch.bincount`; K5: one `torch.take`, checked
-     equal to K5): K1, K3, K5, K4, K6, K7's table build and K7m
+     equal to K5): first K11 (the device table build) == its plain
+     version == the host build on corner rows (all zero, one symbol, two
+     symbols, all 256 equal, Fibonacci rows that need the 15-bit repair,
+     int64 totals over 2**31, random rows; int32 and int64 counts); then
+     K1, K11 (its chain floor and the host build's ms beside it), K3,
+     K5, K4, K6, K7's table build and K7m
      on the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) and the
      compacted K6(K5(x)) == K3(x); K4 and K6 again on the payload route's
-     inputs (1,600 units of 64 KB), with the same two checks; K2, K3 and
-     K6 (again, in the same rows), K7's order-0 table build and K7o on
-     the order-0 inputs (6,400 units of 16 KB)
-  4. main path (Markov): engine.stage -> encode -> decode -> fetch_bytes
-     with the launch counters reset before and read after (K1, K3, K7's
-     table build and K7m once each); bit-exact
-     round trip; container size and sha256 equal to the JAX reference's;
-     the container decodes through api.decompress; encode and decode GB/s
+     inputs (1,600 units of 64 KB), with the same two checks; K2, K11,
+     K3 and K6 (again, in the same rows), K7's order-0 table build and
+     K7o on the order-0 inputs (6,400 units of 16 KB)
+  4. main path (Markov): engine.stage -> encode (the table build on
+     the card) -> decode -> fetch_bytes with the launch counters reset
+     before and read after (K1, K11, K3, K7's table build and K7m once
+     each); bit-exact round trip; container size and sha256 equal to the
+     JAX reference's; the host table build's encode (the counts fetched,
+     the native builder, the lengths passed in) counted (K11 never)
+     writes it too; the two encodes timed in turns; the container decodes
+     through api.decompress; encode and decode GB/s
   5. dense and pallas paths: the same Markov input through engine.encode
      with pack_method="dense" (K5 then K4) and "pallas" (K5 then K6, the
      bubble stream compacted), K3 never launched; the same container;
@@ -40,19 +48,33 @@ calls, after building and checking every kernel those paths run:
      goes straight to the payload; the JAX reference's container for
      that unit size; bit-exact round trip through engine.decode
   7. order-0 path: engine.stage(mode="huffman") -> encode -> decode ->
-     fetch_bytes, counters as in 4 (K2, K3, the order-0 table build and
-     K7o launched, K1 not);
+     fetch_bytes, counters and table builds as in 4 (K2, K11, K3, the
+     order-0 table build and K7o launched, K1 not);
      bit-exact; the JAX reference's container; api.compress writes it and
      api.decompress reads it; encode and decode GB/s; then api.compress
      with pack_method="pallas" (K5, K6) writes it too
+  breakdown: the engine's stages at 100 MB with the device table build,
+     both modes (host clock between synchronisations, minimum of 4), the
+     host build beside it, and the device's idle share over one encode +
+     decode (torch.profiler)
+  small: 1 MB of the corpus as one block (BASELINE configs 1-2), both
+     modes: the device and the host table build each counted and writing
+     the JAX reference's container, timed in turns through engine.encode
+     (the measurements behind `EntropyModel.lengths_for`), and
+     api.compress timed
   8. host bytes: the chunked api.compress / api.decompress (at least two
-     chunks), host bytes in and out, the reference container, timed in
-     turns at 16 MB chunks and at the default `api.CHUNK_BYTES`
+     chunks, K11 once), host bytes in and out, the reference container,
+     timed in turns at 16 MB chunks and at the default `api.CHUNK_BYTES`
   9. CLI: `python -m mhc_tpu_torch.cli` encode (32 MB segments: a chain
      of 4 containers equal to mhc_tpu.api.compress_file's), decode (equal
      to the input), stat; wall seconds of each
   10. hybrid: hybrid.compress / decompress at host_fraction 0.5, the
      reference container, bit-exact, wall seconds
+  sharded: parallel.pipeline.compress_sharded / decompress_sharded at
+     100 MB, each rank a subprocess (`--sharded-rank`, FileStore): one
+     NCCL rank (Markov), then two gloo ranks sharing cuda:0 (Markov and
+     order-0); every rank's container is the reference's and round-trips;
+     wall seconds; scaling unmeasured (one card)
   11. corrupt containers on the card: a payload bit flip, a truncation
      and a bad magic each raise ValueError, and so does the payload
      route's container with its length index rewritten so that unit 0
@@ -99,12 +121,27 @@ REF_100MB_DU64K_SHA256 = ("77617ae59c134f39513a8984a5e1ff3b"
 REF_100MB_SEG32M_LEN = 77_223_411
 REF_100MB_SEG32M_SHA256 = ("3c1cf61d668bc69f88cbd09efb54a7ee"
                            "2e86e79267f9d3b94a438e15725548e7")
+# mhc_tpu.api.compress(bench.make_corpus(1 << 20), block_size=1 << 20)
+# (BASELINE configs 1-2 at 1 MB; one block), Markov and order-0:
+REF_1MB_LEN = 558_638
+REF_1MB_SHA256 = ("83ed79a55b4b386cb5bf938e37c55a02"
+                  "b827e3d62490abad179b521de9755b1d")
+REF_ORDER0_1MB_LEN = 945_766
+REF_ORDER0_1MB_SHA256 = ("f7791a830dcf2a69cf9f020dc94f4a16"
+                         "e89f9215f15e2b41f203f854f42ea37d")
 # the same for bench.make_corpus(4 << 20) (checked by the CPU tests)
 REF_4MB_SHA256 = ("54f0867e82f83dd27606e1a1df827687"
                   "846701316e48a2dc56f0a09f274bcc86")
 TIMED_REPS = 3
 KERNEL_BATCH = 10                # kernel and library calls per timed run
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
+# K11's serial merge: a dependent shared-memory load (29 cycles, measured
+# on an H100 at 1.995 GHz) per pick, at the H100 SXM's 1.98 GHz boost
+SMEM_CHAIN_S = 29 / 1.98e9
+
+# the sharded phase's legs: (name, backend, ranks on cuda:0, modes)
+SHARDED_LEGS = (("nccl_1_rank", "nccl", 1, "markov"),
+                ("gloo_2_ranks_one_card", "gloo", 2, "markov,huffman"))
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
@@ -125,6 +162,8 @@ KERNELS = {
     "decode_lut": ("decode.cu", "mhc_tpu/ops/kernels/decode_pallas.py:857"),
     "decode_lut_order0": ("decode.cu",
                           "mhc_tpu/ops/kernels/decode_pallas.py:845"),
+    # K11, the device table build: an XLA stage on the TPU, not Pallas
+    "code_lengths": ("huffman.cu", "mhc_tpu/ops/huffman.py:289"),
 }
 
 
@@ -200,16 +239,17 @@ def phase_build(names) -> None:
 
 def compare(torch, rows: dict, name: str, kern, plain, reps: int,
             plain_reps: int, inputs: str = "markov", bound_bytes=None,
-            library=None, symbols_per_unit=None):
+            library=None, symbols_per_unit=None, more=None):
     """Kernel `name` vs its plain version on one path's inputs
     ("markov", "payload_route" or "order0"), tolerance 0; records the comparison in the
     kernel's row and returns the kernel's outputs. bound_bytes(outputs)
-    gives the bytes the function must move; `library` is one PyTorch call
-    computing the same function (timed only); symbols_per_unit gives the
-    ns per symbol of one unit's chain. A kernel that both paths run (K3)
-    is held on each path's inputs: its row's numbers are the first
-    path's, its max_abs_err the largest, and `on_inputs` has each
-    comparison."""
+    gives the bytes the function must move (no kernel here does
+    arithmetic that takes longer at the card's peak rate than its bytes
+    at the memory rate); `library` is one PyTorch call computing the same function (timed
+    only); symbols_per_unit gives the ns per symbol of one unit's chain;
+    `more` adds fields. A kernel that both paths run (K3) is held on each
+    path's inputs: its row's numbers are the first path's, its
+    max_abs_err the largest, and `on_inputs` has each comparison."""
     got, ms = min_ms(torch, kern, reps, KERNEL_BATCH)
     ref, plain_ms = min_ms(torch, plain, plain_reps)
     got, ref = as_tuple(got), as_tuple(ref)
@@ -224,6 +264,7 @@ def compare(torch, rows: dict, name: str, kern, plain, reps: int,
              "library_ms": library_ms}
     if symbols_per_unit:
         extra["ns_per_symbol"] = ms * 1e6 / symbols_per_unit
+    extra.update(more or {})
     emit("kernel", kernel=name, inputs=inputs, shapes=shapes,
          max_abs_err=err, tolerance=0, ms=ms, plain_ms=plain_ms,
          plain_inputs="full shape", **extra)
@@ -304,6 +345,110 @@ def cl_packers_checks(torch, rows: dict, cl, fused, inputs: str,
                              f"on the {inputs} inputs")
 
 
+def k11_chain_floor_ms(counts) -> float:
+    """K11's latency floor on these counts: a row of m >= 2 symbols
+    merges in 2 (m - 1) dependent picks, each a shared-memory load;
+    all rows run at once, so the floor is the longest row's chain. K11
+    is held to this floor, which lies far above its bytes bound."""
+    m = (counts.reshape(-1, 256) > 0).sum(dim=1)
+    m = m[m >= 2]
+    if not m.numel():
+        return 0.0
+    return float(2 * (m.max() - 1)) * SMEM_CHAIN_S * 1e3
+
+
+def host_build_ms(torch, model, counts) -> float:
+    """The host table build as the host route runs it: the counts fetched,
+    rescaled and built by the native builder; minimum of 5 on the host
+    clock."""
+    best = float("inf")
+    for _ in range(5):
+        _, s = wall_s(torch, lambda: model.lengths_from_counts(
+            counts.cpu().numpy()))
+        best = min(best, s * 1e3)
+    return best
+
+
+def k11_checks(torch, rows: dict, model, counts, inputs: str) -> None:
+    """K11 against its plain version on one path's counts, timed, with
+    the host build's time beside it; its lengths must equal the host
+    build's."""
+    from mhc_tpu_torch.ops.kernels import huffman_cuda
+    flat = counts.reshape(-1, 256).contiguous()
+    floor_ms = k11_chain_floor_ms(flat)
+    (lengths,) = compare(
+        torch, rows, "code_lengths",
+        lambda: huffman_cuda.code_lengths(flat),
+        lambda: huffman_cuda.code_lengths_plain(flat), 10, 3, inputs,
+        bound_bytes=lambda out: nbytes(flat, *out),
+        more={"chain_floor_ms": floor_ms, "held_to": "chain_floor_ms",
+              "host_build_ms": host_build_ms(torch, model, counts)})
+    row = rows["code_lengths"]
+    share = floor_ms / row["on_inputs"][inputs]["ms"]
+    row["on_inputs"][inputs]["share_of_chain_floor"] = share
+    row.setdefault("share_of_chain_floor", share)
+    host = model.lengths_from_counts(counts.cpu().numpy())
+    same = bool((lengths.reshape(counts.shape).cpu().numpy() == host).all())
+    emit("kernel", check="code_lengths(counts) == host build",
+         inputs=inputs, equal=same)
+    if not same:
+        raise AssertionError(f"K11 differs from the host build on the "
+                             f"{inputs} counts")
+
+
+def k11_synthetic_rows():
+    """(name, (rows, 256) int64 counts) of the rows that test K11's
+    corners: the degenerate rows, ties, the 15-bit repair, int64 totals."""
+    import numpy as np
+    fib = np.zeros(256, np.int64)
+    a, b = 1, 1
+    for i in range(256):
+        fib[i], (a, b) = a, (b, min(a + b, 1 << 50))
+    one, two = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    one[42] = 999
+    two[1], two[200] = 7, 1
+    rng = np.random.default_rng(7)
+    big = rng.integers(1 << 23, 1 << 24, 256).astype(np.int64)
+    return [("all_zero", np.zeros((1, 256), np.int64)),
+            ("one_symbol", one[None]), ("two_symbols", two[None]),
+            ("all_256_equal", np.full((1, 256), 5, np.int64)),
+            ("fibonacci_repair", np.stack([fib, rng.permutation(fib),
+                                           np.where(np.arange(256) < 40,
+                                                    fib, 0)])),
+            ("total_over_2_31", np.stack([big, big << 8, big << 30])),
+            ("random_256_rows", rng.integers(0, 10_000, (256, 256))
+             * (rng.random((256, 256)) < rng.random((256, 1))))]
+
+
+def phase_k11_synthetic(torch, dev) -> None:
+    """K11 == its plain version == the host build on the corner rows, as
+    int64 counts and, where the totals fit, as int32."""
+    import numpy as np
+    from mhc_tpu_torch.ops import huffman
+    from mhc_tpu_torch.ops.kernels import huffman_cuda
+    from mhc_tpu_torch.utils import native
+    seen = {}
+    for name, c in k11_synthetic_rows():
+        dtypes = [torch.int64]
+        if c.sum(axis=1).max() < 1 << 31:
+            dtypes.append(torch.int32)
+        host = native.code_lengths(huffman.rescale_counts(c),
+                                   huffman.MAX_CODE_LEN)
+        for dt in dtypes:
+            t = torch.from_numpy(c).to(dev, dt)
+            got = huffman_cuda.code_lengths(t)
+            torch.cuda.synchronize()
+            plain = huffman_cuda.code_lengths_plain(t)
+            ok = (torch.equal(got, plain)
+                  and bool((got.cpu().numpy() == host).all()))
+            seen[f"{name}/{str(dt)[6:]}"] = ok
+            if not ok:
+                raise AssertionError(f"K11 on {name} ({dt}) differs from "
+                                     "its plain version or the host build")
+    emit("kernel", check="code_lengths synthetic rows == plain == host",
+         cases=seen, max_len=int(got.max()))
+
+
 def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
     """K1, K3, K5, K4, K6 and K7m against their plain versions on the
     Markov main path's inputs."""
@@ -321,6 +466,7 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
         bound_bytes=lambda out: nbytes(u, nv, *out),
         library=lambda: torch.bincount(idx, minlength=65536))
     del idx
+    k11_checks(torch, rows, MARKOV, counts, "markov")
     lengths = MARKOV.lengths_from_counts(counts.cpu().numpy())
     t = MARKOV.tables_from_lengths(lengths, dev)
     tab = (t["codes"], t["lengths"])
@@ -398,6 +544,7 @@ def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
         bound_bytes=lambda out: nbytes(u, nv, *out),
         library=lambda: torch.bincount(idx, minlength=256))
     del idx
+    k11_checks(torch, rows, ORDER0, counts, "order0")
     lengths = ORDER0.lengths_from_counts(counts.cpu().numpy())
     t = ORDER0.tables_from_lengths(lengths, dev)
     tab = (t["codes"], t["lengths"])
@@ -461,10 +608,49 @@ def check_container(path: str, blob: bytes, ref_len: int,
     return digest
 
 
+def host_build_encode(st):
+    """engine.encode of `st` with the host table build, as the port runs
+    it off a card: the counts fetched, the native builder, the lengths
+    passed in."""
+    from mhc_tpu_torch import engine
+    from mhc_tpu_torch.models.entropy import get_model
+    return engine.encode(st, lengths=get_model(st.mode).lengths_from_counts(
+        engine.histogram(st)))
+
+
+def table_build_turns(torch, st, turns: int = 2) -> dict:
+    """engine.encode of `st` (K11, the table build on the card) and
+    `host_build_encode` in turns (device, host, host, device, `turns`
+    times): the minimum ms of each, CUDA events around each call (the
+    call ends in a sync)."""
+    from mhc_tpu_torch import engine
+    fns = {"device": lambda: engine.encode(st),
+           "host": lambda: host_build_encode(st)}
+    ms = {"device": float("inf"), "host": float("inf")}
+    for turn in ("device", "host", "host", "device") * turns:
+        _, t = min_ms(torch, fns[turn], 1)
+        ms[turn] = min(ms[turn], t)
+    return ms
+
+
+def host_route(torch, st, path: str, crc: int, ref_len: int,
+               ref_sha: str) -> dict:
+    """`host_build_encode`, counted: K11 never launched, the reference
+    container. Returns its launches."""
+    from mhc_tpu_torch import engine
+    enc, launches = run_counted(torch, lambda: host_build_encode(st))
+    require_launches(f"{path} (host build)", launches,
+                     {"code_lengths": "none"})
+    check_container(f"{path} (host build)",
+                    engine.assemble_container(enc, crc), ref_len, ref_sha)
+    return launches
+
+
 def round_trip(torch, data: bytes, mode: str, dev, path: str,
                want: dict, ref_len: int, ref_sha: str):
-    """One path end to end through the engine, counted, then timed;
-    returns (container, launches)."""
+    """One path end to end through the engine with the device table
+    build, counted; the host build's encode counted too; both timed in
+    turns. Returns (container, launches)."""
     from mhc_tpu_torch import api, engine
     from mhc_tpu_torch.ops import bitpack
     from mhc_tpu_torch.utils import native
@@ -481,19 +667,21 @@ def round_trip(torch, data: bytes, mode: str, dev, path: str,
         raise AssertionError(f"{path}: round trip is not bit-exact")
     require_launches(path, launches, want)
     del out
-    _, enc_ms = min_ms(torch, lambda: engine.encode(st), TIMED_REPS)
+    crc = zlib.crc32(data) & 0xFFFFFFFF
+    host_launches = host_route(torch, st, path, crc, ref_len, ref_sha)
+    enc_ms = table_build_turns(torch, st)
     _, dec_ms = min_ms(torch, lambda: engine.decode(enc), TIMED_REPS)
     peak = torch.cuda.max_memory_allocated()
 
-    crc = zlib.crc32(data) & 0xFFFFFFFF
     blob = engine.assemble_container(enc, crc)
     raw = int(bitpack.raw_unit_mask(enc.byte_lens, st.n_valid.cpu().numpy(),
                                     enc.aligned).sum())
     emit(path, mode=mode, n_bytes=len(data), n_units=enc.n_units,
          decode_unit=enc.decode_unit, literal_units=raw, launches=launches,
-         table_builder="native C++" if native.available() else "numpy",
-         encode_ms=enc_ms, decode_ms=dec_ms,
-         encode_GBps=len(data) / enc_ms / 1e6,
+         host_build_launches=host_launches,
+         host_table_builder="native C++" if native.available() else "numpy",
+         encode_ms=enc_ms["device"], encode_ms_host_build=enc_ms["host"],
+         decode_ms=dec_ms, encode_GBps=len(data) / enc_ms["device"] / 1e6,
          decode_GBps=len(data) / dec_ms / 1e6,
          container_bytes=len(blob), ratio=len(blob) / len(data),
          sha256=hashlib.sha256(blob).hexdigest(), peak_device_bytes=peak)
@@ -505,6 +693,83 @@ def round_trip(torch, data: bytes, mode: str, dev, path: str,
                              "the input")
     emit("decompress", path=path, ok=True)
     return blob, launches
+
+
+def device_idle_share(torch, fn):
+    """1 - (device busy time) / (host wall time) over one call of fn(),
+    the busy time the union of the CUDA intervals torch.profiler traced;
+    None when it traced no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return 1 - busy / wall_us if spans else None
+
+
+def phase_breakdown(torch, data: bytes, dev) -> None:
+    """The engine's stages at 100 MB, both modes, the device table build:
+    each stage as `engine.encode` / `engine.decode` run it, on the host
+    clock between synchronisations, minimum of 4; the whole encode with
+    each table build beside them; and the device's idle share over one
+    encode + decode (torch.profiler)."""
+    from mhc_tpu_torch import container, engine
+    from mhc_tpu_torch.models.entropy import get_model
+    from mhc_tpu_torch.ops import bitpack
+    from mhc_tpu_torch.ops.kernels import decode_cuda, encode_cuda
+    for mode in ("markov", "huffman"):
+        torch.cuda.empty_cache()
+        model = get_model(mode)
+        st = engine.stage(data, mode=mode, device=dev)
+        u, nv = st.units, st.n_valid
+        aligned = container.aligned_payload(model.mode)
+        ms: dict = {}
+
+        def stage(name, fn):
+            out, secs = wall_s(torch, fn)
+            ms[name] = min(ms.get(name, float("inf")), secs * 1e3)
+            return out
+
+        for _ in range(4):
+            counts = stage("histogram", lambda: model.histogram(u, nv))
+            lengths = stage("k11_table_build",
+                            lambda: model.lengths_for(counts))
+            stage("host_table_build_with_counts_d2h",
+                  lambda: model.lengths_from_counts(counts.cpu().numpy()))
+            t = stage("canonical_tables",
+                      lambda: model.tables_from_lengths(lengths, dev))
+            words, bits = stage("k3_pack", lambda: encode_cuda.pack_units(
+                u, nv, t["codes"], t["lengths"]))
+            words, bits = stage(
+                "literal_substitution", lambda: bitpack.substitute_raw_units(
+                    words, bits, u, nv, aligned))
+            stage("bits_fetch_and_compaction",
+                  lambda: bitpack.device_compact_words(words, torch.from_numpy(
+                      (bits.cpu().numpy().astype("int64") + 31) // 32)
+                      .to(dev)))
+            enc = stage("encode_total", lambda: engine.encode(st))
+            stage("encode_total_host_build", lambda: host_build_encode(st))
+            w, n_dec, raw, td = stage("decode_inputs",
+                                      lambda: engine.decode_inputs(enc))
+            stage("k7_with_table_build", lambda: decode_cuda.decode_units(
+                w, n_dec, td["lim"], td["base"], td["first_code"],
+                td["sorted_syms"], n_out=enc.decode_unit,
+                markov=model.markov))
+            stage("decode_total", lambda: engine.decode(enc))
+        idle = device_idle_share(
+            torch, lambda: engine.decode(engine.encode(st)))
+        emit("breakdown", mode=mode, n_bytes=len(data), stage_ms=ms,
+             device_idle_share_enc_dec=idle)
 
 
 def phase_split_path(torch, data: bytes, dev, pack_method: str,
@@ -599,7 +864,7 @@ def phase_host_bytes(torch, data: bytes, dev) -> None:
     from mhc_tpu_torch import api
     torch.cuda.empty_cache()
     default = api.CHUNK_BYTES
-    n_chunks = len(api._chunks(-(-len(data) // api.DEFAULT_DECODE_UNIT),
+    n_chunks = len(api._chunks(0, -(-len(data) // api.DEFAULT_DECODE_UNIT),
                                api.DEFAULT_DECODE_UNIT))
     if n_chunks < 2:
         raise AssertionError("host_bytes: the default chunk size gives "
@@ -607,7 +872,8 @@ def phase_host_bytes(torch, data: bytes, dev) -> None:
     blob, launches = run_counted(
         torch, lambda: api.compress(data, device=dev))
     require_launches("host_bytes", launches,
-                     {"markov_hist": "some", "pack_units": "some"})
+                     {"markov_hist": "some", "code_lengths": "once",
+                      "pack_units": "some"})
     check_container("host_bytes", blob, REF_100MB_LEN, REF_100MB_SHA256)
     out, dec_launches = run_counted(
         torch, lambda: api.decompress(blob, device=dev))
@@ -635,6 +901,147 @@ def phase_host_bytes(torch, data: bytes, dev) -> None:
          compress_GBps=len(data) / secs[default][0] / 1e9,
          decompress_GBps=len(data) / secs[default][1] / 1e9,
          container_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest())
+
+
+def phase_small(torch, dev) -> None:
+    """1 MB, one block (BASELINE configs 1-2), both modes: the device and
+    the host table build each counted and writing the reference
+    container, then timed in turns through engine.encode (CUDA events);
+    api.compress timed too (host wall clock, host bytes in and out)."""
+    from mhc_tpu_torch import api, engine
+    from mhc_tpu_torch.utils.corpus import make_corpus
+    data = make_corpus(1 << 20)
+    crc = zlib.crc32(data) & 0xFFFFFFFF
+    for mode, ref_len, ref_sha in (
+            ("markov", REF_1MB_LEN, REF_1MB_SHA256),
+            ("huffman", REF_ORDER0_1MB_LEN, REF_ORDER0_1MB_SHA256)):
+        path = f"small_{mode}"
+        st = engine.stage(data, mode=mode, block_size=1 << 20, device=dev)
+        enc, launches = run_counted(torch, lambda: engine.encode(st))
+        require_launches(path, launches, {"code_lengths": "once"})
+        check_container(path, engine.assemble_container(enc, crc),
+                        ref_len, ref_sha)
+        host_launches = host_route(torch, st, path, crc, ref_len, ref_sha)
+        enc_ms = table_build_turns(torch, st, turns=3)
+        api_s = float("inf")
+        for _ in range(6):
+            blob, t = wall_s(torch, lambda: api.compress(
+                data, mode=mode, block_size=1 << 20, device=dev))
+            check_container(f"{path} api.compress", blob, ref_len, ref_sha)
+            api_s = min(api_s, t)
+        emit("small", mode=mode, n_bytes=len(data), block_size=1 << 20,
+             n_units=enc.n_units, launches=launches,
+             host_build_launches=host_launches, encode_ms=enc_ms,
+             compress_s=api_s, container_bytes=ref_len, sha256=ref_sha)
+
+
+def sharded_worker(argv) -> None:
+    """One rank of the `sharded` phase (`chip_smoke.py --sharded-rank
+    RANK WORLD BACKEND STORE CORPUS OUT_DIR MODES`): compress_sharded and
+    decompress_sharded of the corpus on cuda:0, twice per mode, each
+    timed on the host clock; the results in OUT_DIR/rank<RANK>.json."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from mhc_tpu_torch.ops.kernels import _build
+    from mhc_tpu_torch.parallel import mesh as meshmod, pipeline
+    rank, world, backend, store, corpus, out_dir, modes = argv
+    rank, world = int(rank), int(world)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = meshmod.make_mesh("cuda:0")
+        with open(corpus, "rb") as f:
+            data = f.read()
+        res = {"rank": rank, "backend": dist.get_backend(),
+               "device": str(mesh.device),
+               "comm_device": str(mesh.comm_device)}
+        for mode in modes.split(","):
+            times = {"compress_s": [], "decompress_s": []}
+            for _ in range(2):
+                dist.barrier()
+                torch.cuda.synchronize()
+                _build.LAUNCHES.clear()
+                t0 = time.perf_counter()
+                blob = pipeline.compress_sharded(data, mesh, mode=mode)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                back = pipeline.decompress_sharded(blob, mesh)
+                torch.cuda.synchronize()
+                times["compress_s"].append(t1 - t0)
+                times["decompress_s"].append(time.perf_counter() - t1)
+            res[mode] = {**times, "container_bytes": len(blob),
+                         "sha256": hashlib.sha256(blob).hexdigest(),
+                         "round_trip": back == data,
+                         "launches": dict(_build.LAUNCHES)}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(torch, corpus_path: str) -> None:
+    """The sharded pipeline on the one card, each rank a subprocess
+    meeting the others through a FileStore: (a) one NCCL rank, Markov;
+    (b) two gloo ranks sharing cuda:0, Markov and order-0. Every rank's
+    container must be the reference's and round-trip; wall seconds of
+    each leg. Scaling needs more cards than the machine has."""
+    import shutil
+    from mhc_tpu_torch.ops.kernels import _build
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    refs = {"markov": REF_100MB_SHA256, "huffman": REF_ORDER0_100MB_SHA256}
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    legs = {}
+    for leg, backend, world, modes in SHARDED_LEGS:
+        tmp = os.path.join(_build.BUILD_DIR, f"sharded_{leg}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.log"), "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         "--sharded-rank", str(r), str(world), backend,
+                         os.path.join(tmp, "store"), corpus_path, tmp,
+                         modes], cwd=REPO, env=env, stdout=log,
+                        stderr=subprocess.STDOUT))
+            codes = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(codes):
+            bad = next(r for r, c in enumerate(codes) if c)
+            with open(os.path.join(tmp, f"rank{bad}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"sharded {leg}: rank exit codes {codes}:"
+                                 f"\n{tail}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for res in ranks:
+            for mode in modes.split(","):
+                got = res[mode]
+                if got["sha256"] != refs[mode] or not got["round_trip"]:
+                    raise AssertionError(
+                        f"sharded {leg} rank {res['rank']} {mode}: "
+                        f"container {got['sha256']} (reference "
+                        f"{refs[mode]}), round trip {got['round_trip']}")
+        legs[leg] = {"backend": backend, "ranks": world,
+                     "wall_s_all_processes": wall, "per_rank": ranks}
+    emit("sharded", n_bytes=CORPUS_BYTES, legs=legs,
+         scaling="unmeasured (1 card)")
 
 
 def phase_cli(corpus_path: str, data: bytes) -> None:
@@ -784,17 +1191,19 @@ def main() -> int:
     from mhc_tpu_torch.ops.kernels import _build
     from mhc_tpu_torch.utils.corpus import make_corpus
     smi = phase_device(torch)
-    phase_build(("histogram", "encode", "decode"))
+    phase_build(("histogram", "encode", "decode", "huffman"))
     dev = torch.device("cuda:0")
     data = make_corpus(CORPUS_BYTES)
     rows: dict = {}
+    phase_k11_synthetic(torch, dev)
     phase_kernels_markov(torch, data, dev, rows)
     phase_kernels_payload_route(torch, data, dev, rows)
     phase_kernels_order0(torch, data, dev, rows)
     markov_blob, launches = round_trip(
         torch, data, "markov", dev, "main_path",
-        {"markov_hist": "once", "pack_units": "once", "decode_lut": "once",
-         "decode_units": "once"}, REF_100MB_LEN, REF_100MB_SHA256)
+        {"markov_hist": "once", "code_lengths": "once", "pack_units": "once",
+         "decode_lut": "once", "decode_units": "once"}, REF_100MB_LEN,
+        REF_100MB_SHA256)
     dense_launches = phase_split_path(
         torch, data, dev, "dense",
         {"lookup_cl": "once", "pack_cl": "once", "pack_units": "none"})
@@ -805,17 +1214,20 @@ def main() -> int:
     du64k_blob = phase_payload_route(torch, data, dev)
     order0_blob, order0_launches = round_trip(
         torch, data, "huffman", dev, "order0_path",
-        {"order0_hist": "some", "pack_units": "some",
+        {"order0_hist": "some", "code_lengths": "once", "pack_units": "some",
          "decode_lut_order0": "some", "decode_units_order0": "some",
          "markov_hist": "none"},
         REF_ORDER0_100MB_LEN, REF_ORDER0_100MB_SHA256)
     phase_order0_pallas(torch, data, dev)
+    phase_breakdown(torch, data, dev)
+    phase_small(torch, dev)
     phase_host_bytes(torch, data, dev)
     corpus_path = os.path.join(_build.BUILD_DIR, "corpus_100mb.bin")
     with open(corpus_path, "wb") as f:
         f.write(data)
     phase_cli(corpus_path, data)
     phase_hybrid(torch, data, dev)
+    phase_sharded(torch, corpus_path)
     phase_corrupt(torch, markov_blob, data, du64k_blob, dev)
     phase_oracle({"em": markov_blob, "e0": order0_blob}, corpus_path)
     # each kernel's launches on the path that runs it (K3: the main path;
@@ -838,4 +1250,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_worker(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

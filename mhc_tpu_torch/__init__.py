@@ -6,15 +6,16 @@ reference: for the same (bytes, mode, block_size, decode_unit, crc) both
 packages write the same MHTC container, and each decodes the other's.
 This package imports torch and numpy only, never jax or mhc_tpu.
 
-Ported so far: both modes, Markov and order-0 (histogram, host table
-build, lookup+pack — fused; or split into a cl-plane lookup and a pack,
+Ported so far: both modes, Markov and order-0 (histogram, table build —
+on the device on a card, on the host elsewhere — lookup+pack — fused; or split into a cl-plane lookup and a pack,
 pack_method="dense"; or the lookup and the bubble-stream pack,
 pack_method="pallas" — and decode), through the device-resident
 `engine`, the chunked host-bytes `compress`/`decompress`, the file
-functions with segment chaining, the `hybrid` host/device split and the
-CLI (`python -m mhc_tpu_torch.cli encode|decode|stat`). `device=None`
-means the first CUDA card and raises without one; the CPU runs only when
-named.
+functions with segment chaining, the `hybrid` host/device split, the
+data-parallel sharded pipeline on `torch.distributed` (`parallel/`) and
+the CLI (`python -m mhc_tpu_torch.cli encode|decode|stat`).
+`device=None` means the first CUDA card and raises without one; the CPU
+runs only when named.
 """
 
 from .api import (DEFAULT_BLOCK_SIZE, DEFAULT_DECODE_UNIT,

@@ -4,21 +4,27 @@ Counterpart of `mhc_tpu/api.py`, for both modes. The input is cut into
 chunks of whole decode units (`CHUNK_BYTES`), and each chunk runs
 through the device-resident engine:
 
-  compress:   pass 1: copy every chunk to the device and histogram it,
-              the counts summed on the device -> one host table build ->
+  compress:   `encode_range` over all units: pass 1: copy every chunk
+              to the device and histogram it, the counts summed on the
+              device -> one table build (`EntropyModel.lengths_for`: K11
+              on a card, the counts never fetched) ->
               pass 2: per chunk lookup+pack, literal substitution and
               compaction (engine.encode), the payload copied back ->
               container
-  decompress: container -> per chunk: payload copied to the device,
-              expansion, decode, literal overwrite (engine.decode), the
-              bytes copied back -> crc check
+  decompress: container -> `decode_range` over all units: per chunk,
+              payload copied to the device, expansion, decode, literal
+              overwrite (engine.decode), the bytes copied back -> crc
+              check
 
 On a CUDA device every copy goes through a pinned host buffer on a side
 stream, ordered against the compute stream by events, so one chunk's
 copy overlaps another chunk's kernels. The container does not depend on
 the chunking. `compress_file` / `decompress_file` chain independent
 containers for files larger than a segment; `host_fraction` sends a
-share of the units to host C++ threads (`hybrid.py`).
+share of the units to host C++ threads (`hybrid.py`), `sharded` splits
+them over the ranks of a `torch.distributed` world
+(`parallel/pipeline.py`), whose ranks each run `encode_range` and
+`decode_range` on their share.
 
 Not ported: the reference's d2h split into sub-buffers (`_fetch_subs`,
 `_split_flat`: a workaround for its relay), its `MHC_ENC_FETCH` variants
@@ -95,10 +101,11 @@ def resolve_decode_unit(block_size: int, decode_unit: int | None,
     return du
 
 
-def _chunks(n_units: int, du: int):
-    """[lo, hi) unit ranges of CHUNK_BYTES each (at least one unit)."""
+def _chunks(lo: int, hi: int, du: int):
+    """[a, b) unit ranges of CHUNK_BYTES each (at least one unit)
+    covering [lo, hi)."""
     C = max(1, CHUNK_BYTES // du)
-    return [(lo, min(lo + C, n_units)) for lo in range(0, n_units, C)]
+    return [(a, min(a + C, hi)) for a in range(lo, hi, C)]
 
 
 class _Copier:
@@ -186,34 +193,52 @@ def compress(data: bytes, mode: str = "markov",
     if len(data) == 0:
         return _empty_container(model, block_size, du,
                                 zlib.crc32(b"") if crc else None)
-    dev = resolve_device(device)
+    lengths, bit_lens, payload, checksum = encode_range(
+        data, 0, -(-len(data) // du), model, block_size, du,
+        resolve_device(device), pack_method, crc)
+    return container.build_container(
+        model.mode, len(data), block_size, lengths, bit_lens, payload,
+        checksum, decode_unit=du)
+
+
+def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
+                 du: int, dev, pack_method: str = "fused", crc: bool = True,
+                 reduce_counts=None):
+    """Units [lo, hi) of `data` (units past its end are empty and code to
+    no bits) through the engine on `dev`, in chunks of CHUNK_BYTES. Pass
+    1 copies every chunk to the device and histograms it, the counts
+    summed there in int64 and handed to `reduce_counts` (None: kept as
+    they are; the sharded pipeline sums them over its ranks), then one
+    table build (`EntropyModel.lengths_for`); pass 2 packs each chunk
+    and copies its payload back. Returns (host uint8 lengths, (hi - lo,)
+    int64 bit lengths, the container-layout payload in pieces, the crc32
+    of all of `data` or None)."""
+    from . import engine
     flat = np.frombuffer(data, dtype=np.uint8)
     n = flat.size
     copier = _Copier(dev)
-    # pass 1: every chunk to the device, its histogram added on the device
     staged, counts = [], None
-    for lo, hi in _chunks(-(-n // du), du):
-        seg = flat[lo * du: hi * du]
-        units = copier.staging((hi - lo, du), torch.uint8)
+    for a, b in _chunks(lo, hi, du):
+        seg = flat[min(a * du, n): min(b * du, n)]
+        units = copier.staging((b - a, du), torch.uint8)
         u = units.numpy().reshape(-1)
         u[: seg.size] = seg
         u[seg.size:] = 0
-        n_valid = copier.staging((hi - lo,), torch.int32)
-        nv = n_valid.numpy()
-        nv[:] = du
-        nv[-1] = seg.size - (hi - lo - 1) * du
+        n_valid = copier.staging((b - a,), torch.int32)
+        n_valid.numpy()[:] = np.clip(n - np.arange(a, b) * du, 0, du)
         st = engine.Staged(
             mode=model.name, block_size=block_size, decode_unit=du,
-            orig_len=seg.size, n_units=hi - lo,
+            orig_len=seg.size, n_units=b - a,
             units=copier.ready(copier.start_to_device(units)),
             n_valid=copier.ready(copier.start_to_device(n_valid)))
-        c = model.histogram(st.units, st.n_valid)
+        c = model.histogram(st.units, st.n_valid).long()
         counts = c if counts is None else counts + c
         staged.append(st)
     # the host's checksum runs while the device works through pass 1
     checksum = (zlib.crc32(data) & 0xFFFFFFFF) if crc else None
-    lengths = model.lengths_from_counts(
-        counts.cpu().numpy().astype(np.int64))
+    if reduce_counts is not None:
+        counts = reduce_counts(counts)
+    lengths = model.lengths_for(counts)
     # pass 2: pack and compact each chunk; the copy of its payload to the
     # host overlaps the next chunk's kernels
     payload, bit_lens, pending = [], [], []
@@ -229,94 +254,147 @@ def compress(data: bytes, mode: str = "markov",
             finish(*pending.pop(0))
     for p in pending:
         finish(*p)
-    return container.build_container(
-        model.mode, n, block_size, lengths, np.concatenate(bit_lens),
-        payload, checksum, decode_unit=du)
+    return enc.lengths, np.concatenate(bit_lens), payload, checksum
+
+
+def parsed_chunk(meta, lo: int, hi: int, payload: torch.Tensor):
+    """The engine's view of units [lo, hi) of a parsed container, given
+    their payload bytes (uint8, on the decoding device) as stored."""
+    from . import engine
+    from .ops import bitpack
+    du = meta.decode_unit or meta.block_size
+    aligned = bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD)
+    return engine.EncodeResult(
+        mode=get_model(meta.mode).name, block_size=meta.block_size,
+        decode_unit=du, orig_len=min(hi * du, meta.orig_len) - lo * du,
+        n_units=hi - lo, lengths=meta.lengths,
+        byte_lens=meta.byte_lengths[lo:hi].astype(np.int64), bit_lens=None,
+        payload=bitpack.be_bytes_to_words(payload) if aligned else payload,
+        raw_units=bool(meta.flags & container.FLAG_RAW_UNITS),
+        aligned=aligned)
+
+
+def check_parsed(meta) -> tuple:
+    """(decode unit, per-unit stored bytes, payload start of each unit
+    and of the end) of a parsed container with data, after the checks
+    that must pass before anything is sized by its index."""
+    from . import engine
+    du = meta.decode_unit or meta.block_size
+    byte_lens = meta.byte_lengths.astype(np.int64)
+    if len(byte_lens) != -(-meta.orig_len // du):
+        raise ValueError("mhc: corrupt container (unit count)")
+    engine.check_unit_lengths(
+        byte_lens, du, bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD))
+    starts = meta.payload_off + np.concatenate(
+        [[0], np.cumsum(byte_lens)]).astype(np.int64)
+    return du, byte_lens, starts
 
 
 def decompress(blob: bytes, verify: bool = True, device=None) -> bytes:
     """MHTC container of either mode and either payload layout ->
     original bytes, decoded on `device` (None: the first CUDA card;
     raises without one)."""
-    from . import engine
-    from .ops import bitpack
     meta = container.parse_container(blob)
-    model = get_model(meta.mode)
     if meta.orig_len == 0:
         return b""
     dev = resolve_device(device)
-    du = meta.decode_unit or meta.block_size
-    byte_lens = meta.byte_lengths.astype(np.int64)
-    R = len(byte_lens)
-    if R != -(-meta.orig_len // du):
-        raise ValueError("mhc: corrupt container (unit count)")
-    aligned = bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD)
     # before any upload or allocation
-    engine.check_unit_lengths(byte_lens, du, aligned)
-    starts = meta.payload_off + np.concatenate(
-        [[0], np.cumsum(byte_lens)]).astype(np.int64)
+    _, byte_lens, starts = check_parsed(meta)
+    data = decode_range(blob, meta, starts, 0, len(byte_lens), dev)
+    if verify:
+        container.verify_crc(data, meta)
+    return data
+
+
+def decode_range(blob: bytes, meta, starts: np.ndarray, lo: int, hi: int,
+                 dev) -> bytes:
+    """The original bytes of units [lo, hi) of a parsed container
+    (`starts` from `check_parsed`), decoded on `dev` in chunks of
+    CHUNK_BYTES: each chunk's payload copied to the device, decoded
+    (engine.decode) and copied back, the next chunk's upload beside this
+    chunk's kernels."""
+    from . import engine
+    du = meta.decode_unit or meta.block_size
+    chunks = _chunks(lo, hi, du)
+    if not chunks:
+        return b""
     src = np.frombuffer(blob, dtype=np.uint8)
     copier = _Copier(dev)
     out, pending = [], []
 
-    def upload(lo, hi):
-        a, b = int(starts[lo]), int(starts[hi])
-        host = copier.staging((b - a,), torch.uint8)
-        host.numpy()[:] = src[a:b]
+    def upload(a, b):
+        start, end = int(starts[a]), int(starts[b])
+        host = copier.staging((end - start,), torch.uint8)
+        host.numpy()[:] = src[start:end]
         return copier.start_to_device(host)
 
     def finish(enc, handle):
         # a view of the host buffer: the one copy is the join below
         out.append(copier.host(handle).reshape(-1)[: enc.orig_len])
 
-    chunks = _chunks(R, du)
     upload_next = upload(*chunks[0])
-    for i, (lo, hi) in enumerate(chunks):
+    for i, (a, b) in enumerate(chunks):
         payload = copier.ready(upload_next)
         # the next chunk's copy runs beside this chunk's kernels
         if i + 1 < len(chunks):
             upload_next = upload(*chunks[i + 1])
-        enc = engine.EncodeResult(
-            mode=model.name, block_size=meta.block_size, decode_unit=du,
-            orig_len=min(hi * du, meta.orig_len) - lo * du, n_units=hi - lo,
-            lengths=meta.lengths, byte_lens=byte_lens[lo:hi], bit_lens=None,
-            payload=(bitpack.be_bytes_to_words(payload) if aligned
-                     else payload),
-            raw_units=bool(meta.flags & container.FLAG_RAW_UNITS),
-            aligned=aligned)
+        enc = parsed_chunk(meta, a, b, payload)
         pending.append((enc, copier.start_to_host(engine.decode(enc))))
         if len(pending) > 1:
             finish(*pending.pop(0))
     for p in pending:
         finish(*p)
-    data = b"".join(out)
-    if verify:
-        container.verify_crc(data, meta)
-    return data
+    return b"".join(out)
+
+
+def _sharded_mesh(sharded: bool, mesh, host_fraction, device):
+    """The mesh a sharded file call runs on (None when not sharded)."""
+    if not sharded:
+        return None
+    if host_fraction is not None:
+        raise ValueError("sharded and host_fraction are two executors for "
+                         "one call; pass one")
+    from .parallel.mesh import make_mesh
+    return mesh or make_mesh(device)
+
+
+def _output(path: str, mesh):
+    """The output file, or a sink on the ranks of a sharded run other
+    than each node's local rank 0: N ranks on a node share its paths."""
+    if mesh is not None and mesh.local_rank != 0:
+        return open(os.devnull, "wb")
+    return open(path, "wb")
 
 
 def compress_file(in_path: str, out_path: str, mode: str = "markov",
                   block_size: int = DEFAULT_BLOCK_SIZE,
                   decode_unit: int | None = None, crc: bool = True,
                   segment_size: int = DEFAULT_SEGMENT_SIZE,
-                  sharded: bool = False, host_fraction: float | None = None,
+                  sharded: bool = False, mesh=None,
+                  host_fraction: float | None = None,
                   device=None) -> dict:
     """Streaming file compression with segment chaining; returns stats.
-    `host_fraction` routes that share of each segment's units to the
-    hybrid host/device executor; the containers are the same either way."""
-    if sharded:
-        raise NotImplementedError(
-            "sharded compression is multi-GPU, ROADMAP.md item 11, not "
-            "ported yet")
+    `sharded` splits each segment's units over the ranks of `mesh`
+    (None: `parallel.mesh.make_mesh(device)`, the initialised world or a
+    world of one), every rank reading the input and local rank 0
+    writing; `host_fraction` routes that share of each segment's units
+    to the hybrid host/device executor. The containers are the same
+    either way."""
+    mesh = _sharded_mesh(sharded, mesh, host_fraction, device)
     total_in = os.path.getsize(in_path)
     total_out = 0
     n_segments = 0
-    with open(in_path, "rb") as f, open(out_path, "wb") as out:
+    with open(in_path, "rb") as f, _output(out_path, mesh) as out:
         while True:
             seg = f.read(segment_size)
             if not seg and n_segments > 0:
                 break
-            if host_fraction is not None:
+            if sharded:
+                from .parallel import pipeline
+                blob = pipeline.compress_sharded(
+                    seg, mesh, mode=mode, block_size=block_size, crc=crc,
+                    decode_unit=decode_unit)
+            elif host_fraction is not None:
                 from . import hybrid
                 blob = hybrid.compress(
                     seg, mode=mode, block_size=block_size, crc=crc,
@@ -365,23 +443,24 @@ def _next_segment(f, buf: bytes) -> tuple[bytes | None, bytes]:
 
 
 def decompress_file(in_path: str, out_path: str, verify: bool = True,
-                    sharded: bool = False, host_fraction: float | None = None,
+                    sharded: bool = False, mesh=None,
+                    host_fraction: float | None = None,
                     device=None) -> dict:
     """Streaming decompression of a (possibly segment-chained) file, one
-    segment at a time."""
-    if sharded:
-        raise NotImplementedError(
-            "sharded decompression is multi-GPU, ROADMAP.md item 11, not "
-            "ported yet")
+    segment at a time; `sharded` and `mesh` as in `compress_file`."""
+    mesh = _sharded_mesh(sharded, mesh, host_fraction, device)
     total_out = 0
     n_segments = 0
-    with open(in_path, "rb") as f, open(out_path, "wb") as out:
+    with open(in_path, "rb") as f, _output(out_path, mesh) as out:
         carry = b""
         while True:
             seg, carry = _next_segment(f, carry)
             if seg is None:
                 break
-            if host_fraction is not None:
+            if sharded:
+                from .parallel import pipeline
+                data = pipeline.decompress_sharded(seg, mesh, verify=verify)
+            elif host_fraction is not None:
                 from . import hybrid
                 data = hybrid.decompress(seg, verify=verify,
                                          host_fraction=host_fraction,

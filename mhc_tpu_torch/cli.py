@@ -4,12 +4,17 @@
     python -m mhc_tpu_torch.cli encode --mode markov --block-size 64K IN OUT
     python -m mhc_tpu_torch.cli decode IN OUT
     python -m mhc_tpu_torch.cli stat IN          (inspect a container)
+    torchrun --nproc-per-node N -m mhc_tpu_torch.cli encode --distributed IN OUT
 
 `--device` defaults to the first CUDA card; without one the command
 fails unless `--device cpu` names the CPU (the plain PyTorch versions of
-the kernels). The reference's `decode --decode-method` chose between TPU
-decoders and is not ported; `--sharded` and `--distributed` (multi-GPU,
-ROADMAP.md item 11) fail until it is.
+the kernels). `--sharded` runs the data-parallel pipeline
+(`parallel/pipeline.py`) over the initialised `torch.distributed` world,
+or a world of one; `--distributed` first joins the world torchrun
+describes (`parallel.mesh.init_distributed`: NCCL on CUDA, gloo with
+`--device cpu`) and implies `--sharded`. Every rank reads the input and
+each node's local rank 0 writes the output. The reference's
+`decode --decode-method` chose between TPU decoders and is not ported.
 """
 
 from __future__ import annotations
@@ -69,11 +74,13 @@ def main(argv=None) -> int:
                         help="torch device (default: the first CUDA card; "
                         "'cpu' runs the plain PyTorch versions)")
         sp.add_argument("--sharded", action="store_true",
-                        help="multi-GPU: not ported yet (ROADMAP.md item "
-                        "11)")
+                        help="data-parallel over the ranks of the "
+                        "torch.distributed world (a world of one when "
+                        "none is initialised)")
         sp.add_argument("--distributed", action="store_true",
-                        help="multi-host: not ported yet (ROADMAP.md item "
-                        "11)")
+                        help="join the world torchrun describes first "
+                        "(NCCL on CUDA, gloo on the CPU); implies "
+                        "--sharded")
 
     ps = sub.add_parser("stat", help="inspect a container header")
     ps.add_argument("input")
@@ -110,12 +117,15 @@ def _run(args, api, container) -> int:
         }))
         return 0
 
-    if args.sharded or args.distributed:
-        raise NotImplementedError(
-            "--sharded and --distributed are multi-GPU, ROADMAP.md item "
-            "11, not ported yet")
     from .config import resolve_device
-    device = resolve_device(args.device)
+    mesh = None
+    if args.distributed:
+        from .parallel.mesh import init_distributed
+        mesh = init_distributed(args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
+    sharded = args.sharded or args.distributed
 
     if args.cmd == "encode":
         t0 = time.perf_counter()
@@ -123,7 +133,8 @@ def _run(args, api, container) -> int:
             args.input, args.output, mode=args.mode,
             block_size=args.block_size, decode_unit=args.decode_unit,
             crc=not args.no_crc, segment_size=args.segment_size,
-            host_fraction=args.host_fraction, device=device)
+            sharded=sharded, mesh=mesh, host_fraction=args.host_fraction,
+            device=device)
         dt = time.perf_counter() - t0
         if args.report:
             rep["encode_seconds"] = dt
@@ -138,7 +149,8 @@ def _run(args, api, container) -> int:
     t0 = time.perf_counter()
     rep = api.decompress_file(
         args.input, args.output, verify=not args.no_verify,
-        host_fraction=args.host_fraction, device=device)
+        sharded=sharded, mesh=mesh, host_fraction=args.host_fraction,
+        device=device)
     dt = time.perf_counter() - t0
     if args.report:
         rep["decode_seconds"] = dt

@@ -1,13 +1,14 @@
-"""Device resolution — the only setting the port has.
+"""Device resolution — the port's only setting.
 
 The reference's performance knobs (`mhc_tpu/config.py`: pack, lookup,
 histogram and decode variants, chunk sizes) chose between TPU kernel
-variants; the port has one kernel per contract, and the one choice a
-caller makes, `pack_method`, is a parameter of `compress` and
-`engine.encode`. Callers pass `device` to `stage`, `compress` and
-`decompress`; None means the first CUDA card, and raises when there is
-none. The CPU, where every kernel runs as its plain PyTorch version, is
-used only when the caller names it.
+variants; the port has one kernel per contract. The one choice a caller
+makes is `pack_method`, a parameter of `compress` and `engine.encode`;
+where the table build runs follows from where the counts lie
+(`EntropyModel.lengths_for`). Callers pass `device` to `stage`,
+`compress` and `decompress`; None means the first CUDA card, and raises
+when there is none. The CPU, where every kernel runs as its plain
+PyTorch version, is used only when the caller names it.
 """
 
 from __future__ import annotations
@@ -24,3 +25,4 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                 "run the plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+

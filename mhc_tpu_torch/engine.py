@@ -2,15 +2,22 @@
 
 Counterpart of `mhc_tpu/engine.py`. Input units, the compressed payload
 and the decoded output all live in device memory; the only host traffic
-is the counts, the uint8 code-length header and the per-unit length
-index. The engine launches once over all units it is given: the
+is the uint8 code-length header, the per-unit length index and, off a
+CUDA card, the counts. The engine launches once over all units it is
+given: the
 reference's 16 MB chunk loop bounded TPU VMEM and compile size, which a
 GPU does not need (the host-bytes API in `api.py` chunks for its copies).
 
 Paths, Markov and order-0 alike:
-  encode: histogram (K1 Markov, K2 order-0) -> host table build ->
+  encode: histogram (K1 Markov, K2 order-0) -> table build ->
           canonical tables -> lookup+pack -> literal substitution ->
-          compaction, where lookup+pack is
+          compaction, where the table build is
+            on a CUDA card: K11 on the counts where they lie, none
+              fetched; the lengths come back to the host with the bit
+              lengths the encode fetches anyway;
+            elsewhere: the counts fetched, the native builder
+            (`EntropyModel.lengths_for`);
+          and lookup+pack is
             pack_method="fused" (default): K3;
             pack_method="dense": K5 (cl plane) then K4 (pack);
             pack_method="pallas": K5 then K6 (bubble stream), compacted
@@ -114,20 +121,20 @@ def check_pack_method(pack_method: str | None) -> str:
                      f"of {PACK_METHODS}")
 
 
-def encode(st: Staged, lengths: np.ndarray | None = None,
+def encode(st: Staged, lengths=None,
            pack_method: str | None = None) -> EncodeResult:
-    """Histogram -> host table build -> lookup+pack -> literal
-    substitution -> dense word-aligned payload, all but the table build
-    on the device. `lengths` overrides the histogram and table build;
-    `pack_method` is "fused" (None, K3), "dense" (K5 then K4) or
+    """Histogram -> table build (`EntropyModel.lengths_for`) ->
+    lookup+pack -> literal substitution -> dense word-aligned payload.
+    `lengths` (host uint8, or a tensor) overrides the histogram and table
+    build; `pack_method` is "fused" (None, K3), "dense" (K5 then K4) or
     "pallas" (K5 then K6)."""
     pack_method = check_pack_method(pack_method)
     model = get_model(st.mode)
     dev = st.units.device
     if lengths is None:
-        lengths = model.lengths_from_counts(histogram(st))
-    lengths = np.asarray(lengths, dtype=np.uint8)
+        lengths = model.lengths_for(model.histogram(st.units, st.n_valid))
     tables = model.tables_from_lengths(lengths, dev)
+    lengths_host = _start_fetch(lengths)
     tab = (tables["codes"], tables["lengths"])
     aligned = container.aligned_payload(model.mode)
     literals = st.decode_unit != st.block_size   # substream layout
@@ -150,9 +157,23 @@ def encode(st: Staged, lengths: np.ndarray | None = None,
         payload = bitpack.device_compact_words(words, word_lens)
     return EncodeResult(
         mode=st.mode, block_size=st.block_size, decode_unit=st.decode_unit,
-        orig_len=st.orig_len, n_units=st.n_units, lengths=lengths,
+        orig_len=st.orig_len, n_units=st.n_units,
+        # the bits fetch above synchronised the stream, copy included
+        lengths=lengths_host.numpy(),
         byte_lens=container.stream_byte_lens(bit_lens, model.mode),
         bit_lens=bit_lens, payload=payload, aligned=aligned)
+
+
+def _start_fetch(lengths) -> torch.Tensor:
+    """Host uint8 lengths: numpy as given, a CPU tensor as it is, a CUDA
+    tensor copied into pinned memory on the current stream, to be read
+    once a later fetch on that stream has synchronised it."""
+    if not torch.is_tensor(lengths):
+        return torch.from_numpy(np.asarray(lengths, dtype=np.uint8))
+    if lengths.device.type != "cuda":
+        return lengths.to(torch.uint8)
+    host = torch.empty(lengths.shape, dtype=torch.uint8, pin_memory=True)
+    return host.copy_(lengths, non_blocking=True)
 
 
 def _pack(st: Staged, tab, pack_method: str):

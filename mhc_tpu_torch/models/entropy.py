@@ -41,11 +41,24 @@ class EntropyModel:
         scaled = huffman.rescale_counts(np.asarray(counts))
         return native.code_lengths(scaled, huffman.MAX_CODE_LEN)
 
+    def lengths_for(self, counts: torch.Tensor) -> torch.Tensor:
+        """uint8 code lengths of int32 or int64 counts, on the counts'
+        device and of their shape: K11 where they lie on a CUDA card (no
+        fetch; it won at 1 MB and at 100 MB on an H100, PERF.md §6), the
+        host builder elsewhere (the reference builds on the device only
+        on its chip). Both give the same lengths."""
+        if counts.device.type == "cuda":
+            return huffman.code_lengths(counts)
+        return torch.from_numpy(self.lengths_from_counts(
+            counts.numpy().astype(np.int64)))
+
     def tables_from_lengths(self, lengths, device) -> dict:
         """Full encode+decode table set on `device`, (256, ...) layout,
-        every table contiguous."""
-        t = canonical.canonical_codes(
-            torch.as_tensor(np.asarray(lengths, np.int64), device=device))
+        every table contiguous. `lengths` is host (numpy) or a tensor,
+        taken where it lies when that is `device`."""
+        if not torch.is_tensor(lengths):
+            lengths = torch.from_numpy(np.asarray(lengths, np.int64))
+        t = canonical.canonical_codes(lengths.to(device, torch.int64))
         if self.markov:
             return t
         return {k: v.expand(256, v.shape[-1]).contiguous()

@@ -1,17 +1,22 @@
-"""Huffman code-length assignment — deterministic, length-limited (host).
+"""Huffman code-length assignment — deterministic, length-limited.
 
-Counterpart of `mhc_tpu/ops/huffman.py`, host half only: the table build
-runs once per encode on 256 contexts, on the host (the native C++
-builder in `utils/native.py`, or this numpy twin). Ties are broken by (weight,
-then leaf-before-internal, then lower symbol) and lengths are limited to
-MAX_CODE_LEN with the deflate-style overflow repair — the bits must
-equal the reference's, because containers are a pure function of the
-input.
+Counterpart of `mhc_tpu/ops/huffman.py`. The table build runs once per
+encode on 256 contexts (Markov) or one row (order-0), on either side:
+  host:   `rescale_counts` -> the native C++ builder in `utils/native.py`,
+          or its numpy twin `code_lengths_np`;
+  device: `code_lengths` on a counts tensor (K11, `ops/kernels/
+          huffman_cuda.py`; the reference's `code_lengths` with
+          `rescale_counts_jax`), the counts never leaving the device.
+Ties are broken by (weight, then leaf-before-internal, then lower symbol)
+and lengths are limited to MAX_CODE_LEN with the deflate-style overflow
+repair. Both sides give the same bits for every input — containers are
+a pure function of the input, and equal the reference's.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Maximum code length: the decoder peeks a fixed 15-bit window.
 MAX_CODE_LEN = 15
@@ -119,3 +124,12 @@ def limit_lengths_np(lengths: np.ndarray,
     new_lens = np.zeros(n, dtype=np.uint8)
     new_lens[order] = np.repeat(np.arange(max_len + 1), bl)
     return new_lens
+
+
+def code_lengths(counts: torch.Tensor) -> torch.Tensor:
+    """(..., 256) int32 or int64 counts, on any device, unscaled -> uint8
+    code lengths of the same shape on that device: `rescale_counts` then
+    `code_lengths_np` for every row, computed where the counts are."""
+    from .kernels import huffman_cuda
+    flat = counts.reshape(-1, counts.shape[-1]).contiguous()
+    return huffman_cuda.code_lengths(flat).reshape(counts.shape)

@@ -20,7 +20,7 @@ def test_chunked_container_identical(monkeypatch, mode, du,
     ref = jax_api.compress(DATA, mode=mode)
     assert api.compress(DATA, mode=mode, device="cpu") == ref
     monkeypatch.setattr(api, "CHUNK_BYTES", units_per_chunk * du)
-    assert len(api._chunks(-(-len(DATA) // du), du)) > 1
+    assert len(api._chunks(0, -(-len(DATA) // du), du)) > 1
     blob = api.compress(DATA, mode=mode, device="cpu")
     assert blob == ref
     assert api.decompress(blob, device="cpu") == DATA
@@ -28,10 +28,12 @@ def test_chunked_container_identical(monkeypatch, mode, du,
 
 def test_chunks_cover_every_unit_once(monkeypatch):
     monkeypatch.setattr(api, "CHUNK_BYTES", 3 * 8192 + 5)
-    assert api._chunks(7, 8192) == [(0, 3), (3, 6), (6, 7)]
+    assert api._chunks(0, 7, 8192) == [(0, 3), (3, 6), (6, 7)]
+    # a range from its own first unit, as a sharded rank's share
+    assert api._chunks(5, 12, 8192) == [(5, 8), (8, 11), (11, 12)]
     monkeypatch.setattr(api, "CHUNK_BYTES", 100)
-    assert api._chunks(2, 8192) == [(0, 1), (1, 2)]
-    assert api._chunks(0, 8192) == []
+    assert api._chunks(0, 2, 8192) == [(0, 1), (1, 2)]
+    assert api._chunks(0, 0, 8192) == []
 
 
 def test_compression_report_adds_up():

@@ -14,8 +14,10 @@ import mhc_tpu_torch
 from mhc_tpu_torch import api, engine, hybrid
 from mhc_tpu_torch.models.entropy import get_model
 from mhc_tpu_torch.ops import bitpack
+from mhc_tpu_torch.ops import huffman
 from mhc_tpu_torch.ops.kernels import (_build, decode_cuda, encode_cuda,
-                                       histogram_cuda)
+                                       histogram_cuda, huffman_cuda)
+from mhc_tpu_torch.parallel import pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -191,10 +193,11 @@ _DEC0 = {"decode_lut_order0": 1, "decode_units_order0": 1}
                            "bubble_pack": 1, **_DEC0})])
 def test_launch_counters_count_kernel_launches(dev, mode, pack_method,
                                                expected):
+    """The default table build on a card is K11's: once per encode."""
     st = engine.stage(_data(50_000, 1), mode=mode, device=dev)
     _build.LAUNCHES.clear()
     engine.decode(engine.encode(st, pack_method=pack_method))
-    assert dict(_build.LAUNCHES) == expected
+    assert dict(_build.LAUNCHES) == {**expected, "code_lengths": 1}
 
 
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
@@ -382,3 +385,81 @@ def test_failed_build_raises_instead_of_falling_back(dev, monkeypatch):
     nv = torch.full((2,), 16, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         histogram_cuda.markov_hist(u, nv)
+
+
+def _k11_rows(kind: str) -> np.ndarray:
+    """(rows, 256) int64 counts of K11's corners: the degenerate rows,
+    ties, the 15-bit repair, int64 totals."""
+    rng = np.random.default_rng(len(kind))
+    fib = np.zeros(256, np.int64)
+    a, b = 1, 1
+    for i in range(256):
+        fib[i], (a, b) = a, (b, min(a + b, 1 << 40))
+    one, two = np.zeros((1, 256), np.int64), np.zeros((1, 256), np.int64)
+    one[0, 42] = 999
+    two[0, 1], two[0, 200] = 7, 1
+    big = rng.integers(1 << 23, 1 << 24, 256).astype(np.int64)
+    return {
+        "all_zero": np.zeros((3, 256), np.int64), "one_symbol": one,
+        "two_symbols": two, "all_equal": np.full((2, 256), 5, np.int64),
+        "fibonacci": np.stack([fib, rng.permutation(fib),
+                               np.where(np.arange(256) < 40, fib, 0)]),
+        "over_2_31": np.stack([big, big << 8, big << 30]),
+        "random": (rng.integers(0, 10 ** 6, (300, 256))
+                   * (rng.random((300, 256)) < rng.random((300, 1)))),
+    }[kind]
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("kind", ["all_zero", "one_symbol", "two_symbols",
+                                  "all_equal", "fibonacci", "over_2_31",
+                                  "random"])
+def test_k11_equals_plain_version_and_host_build(dev, kind, dtype):
+    counts = _k11_rows(kind)
+    if dtype == torch.int32:
+        counts = np.minimum(counts, 1 << 22)   # a row's total fits int32
+    t = torch.from_numpy(counts).to(dev, dtype)
+    _build.LAUNCHES.clear()
+    got = huffman_cuda.code_lengths(t)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["code_lengths"] == 1
+    assert torch.equal(got, huffman_cuda.code_lengths_plain(t))
+    host = get_model("markov").lengths_from_counts(counts)
+    assert (got.cpu().numpy() == host).all()
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_k11_on_corpus_counts_and_both_table_builds(dev, mode):
+    """K11 on a histogram's counts, in place on the card, equals the host
+    build; the engine's two table builds write the same container, K11
+    launched by the device build only."""
+    model = get_model(mode)
+    data = _data(300_001, 5)
+    st = engine.stage(data, mode=mode, device=dev)
+    counts = model.histogram(st.units, st.n_valid)
+    lengths = huffman.code_lengths(counts)
+    assert lengths.shape == counts.shape and lengths.device == counts.device
+    assert (lengths.cpu().numpy()
+            == model.lengths_from_counts(counts.cpu().numpy())).all()
+    blobs = {}
+    host_lengths = model.lengths_from_counts(engine.histogram(st))
+    for build, encode in (
+            ("device", lambda: engine.encode(st)),
+            ("host", lambda: engine.encode(st, lengths=host_lengths))):
+        _build.LAUNCHES.clear()
+        enc = encode()
+        assert _build.LAUNCHES["code_lengths"] == (build == "device")
+        blobs[build] = engine.assemble_container(enc, None)
+    assert blobs["device"] == blobs["host"]
+    _build.LAUNCHES.clear()
+    assert (api.compress(data, mode=mode, device=dev)
+            == mhc_tpu_torch.compress(data, mode=mode, device="cpu"))
+    assert _build.LAUNCHES["code_lengths"] == 1
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_sharded_world_of_one_on_the_card(dev, mode):
+    data = _data(300_001, 6)
+    blob = pipeline.compress_sharded(data, mode=mode, device=dev)
+    assert blob == mhc_tpu_torch.compress(data, mode=mode, device="cpu")
+    assert pipeline.decompress_sharded(blob, device=dev) == data

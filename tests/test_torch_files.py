@@ -1,8 +1,9 @@
 """The port's file API and CLI (tests/test_files.py against
-mhc_tpu_torch, minus the sharded test): segment chaining, the streaming
-segment reader, the CLI round trip and `stat`; a chained file equals the
-one `mhc_tpu.api.compress_file` writes, and the CLI refuses what is not
-ported and a missing card."""
+mhc_tpu_torch; the sharded pipeline's own tests are in
+test_torch_parallel.py): segment chaining, the streaming segment reader,
+the CLI round trip and `stat`; a chained file equals the one
+`mhc_tpu.api.compress_file` writes, and the CLI refuses misused
+multi-GPU flags and a missing card."""
 
 import json
 import os
@@ -60,14 +61,27 @@ def test_empty_file(tmpfiles):
     assert open(back, "rb").read() == b""
 
 
-def test_sharded_raises_naming_the_roadmap_item(tmpfiles):
+def test_sharded_file_world_of_one_and_host_fraction_refused(tmpfiles):
+    """sharded=True without a torch.distributed world runs the pipeline
+    as a world of one: the single-device path's chained file, decoded
+    back; and it refuses host_fraction, which it would otherwise
+    ignore."""
     mk, tmp = tmpfiles
-    src = mk("in.bin", b"abc")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.compress_file(src, str(tmp / "out.mhc"), sharded=True,
+    data = english_like(70_000, seed=36)
+    src = mk("in.bin", data)
+    dst, ref, back = (str(tmp / n) for n in ("out.mhc", "ref.mhc", "back"))
+    api.compress_file(src, dst, segment_size=30_000, sharded=True,
+                      device="cpu")
+    api.compress_file(src, ref, segment_size=30_000, device="cpu")
+    assert open(dst, "rb").read() == open(ref, "rb").read()
+    assert api.decompress_file(dst, back, sharded=True,
+                               device="cpu")["n_segments"] == 3
+    assert open(back, "rb").read() == data
+    with pytest.raises(ValueError, match="host_fraction"):
+        api.compress_file(src, dst, sharded=True, host_fraction=0.5,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.decompress_file(src, str(tmp / "back"), sharded=True,
+    with pytest.raises(ValueError, match="host_fraction"):
+        api.decompress_file(dst, back, sharded=True, host_fraction=0.5,
                             device="cpu")
 
 
@@ -140,13 +154,22 @@ def test_streaming_segment_reader(tmpfiles):
     assert b"".join(api.decompress(s, device="cpu") for s in segs) == data
 
 
-@pytest.mark.parametrize("flag", ["--sharded", "--distributed"])
-def test_cli_multi_gpu_flags_exit_1(tmpfiles, capsys, flag):
+@pytest.mark.parametrize("flag,error", [("--sharded", "host_fraction"),
+                                        ("--distributed", "RANK")])
+def test_cli_multi_gpu_flags_exit_1(tmpfiles, capsys, monkeypatch, flag,
+                                    error):
+    """One error line, exit 1: --sharded with --host-fraction (two
+    executors for one file), and --distributed outside the environment
+    torchrun sets."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
     mk, tmp = tmpfiles
     src = mk("in.bin", b"abc")
-    assert cli_main(["encode", flag, "--device", "cpu", src,
-                     str(tmp / "out.mhc")]) == 1
-    assert "item 11" in capsys.readouterr().err
+    assert cli_main(["encode", flag, "--host-fraction", "0.5", "--device",
+                     "cpu", src, str(tmp / "out.mhc")]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("mhc: error:") and error in err
 
 
 def test_cli_without_a_card_exits_1(tmpfiles, capsys, monkeypatch):
