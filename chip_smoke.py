@@ -84,6 +84,33 @@ calls, after building and checking every kernel those paths run:
   12. oracle: `make -C oracle` builds the single-core C++ oracle (a
      failed build fails the run), and each container is no larger than
      the oracle's (em for Markov, e0 for order-0)
+  13. serve: the codec service in this process on cuda:0
+     (`serve.make_server`, served from a thread, after a timed
+     `serve.warmup`), its clients over urllib: /compress of the 100 MB
+     corpus in both modes (the reference containers) and /decompress of
+     each (the corpus), the Markov pair counted (K1 and K3 once per
+     chunk, K11 once; K7m and its table build once per chunk); eight
+     concurrent 1 MB clients (4 Markov, 4 order-0, one 1 MB block; the
+     1 MB references); a garbage container (400); /healthz; /stats
+     counting every request and the one error; each request's client
+     wall time beside its X-MHC-Seconds
+  14. serve_cli: `python -m mhc_tpu_torch.serve --port 0` in a
+     subprocess: its warm-up and bound port read from its output,
+     /healthz and a 1 MB round trip, SIGINT ends it with exit 0; the
+     wall time to `listening on`; then the same command with no card
+     visible exits non-zero with `resolve_device`'s message
+  15. trace: api.compress / api.decompress of the 100 MB Markov corpus
+     with MHC_TRACE=1 and without, in turns: the reference container
+     either way; the traced phases, their sum beside the traced call's
+     wall, and the untraced call's wall
+  16. profile: `utils.metrics.torch_profile` around two engine.encode +
+     decode passes at 100 MB (Markov): the trace file names K1, K11, K3,
+     K7's table build and K7m by their `__global__` names, with each
+     one's device time and how many of its two launches the trace holds
+     (torch.profiler loses a window's first kernels in an aged process)
+  17. dryrun: `python -m mhc_tpu_torch.parallel.dryrun --ranks 1` (NCCL
+     on cuda:0, the default on a card) and `--ranks 2 --backend gloo`
+     (two ranks sharing cuda:0) exit 0
 Every phase prints one JSON line; any failure raises (non-zero exit, no
 final line). Before the last line come the `nvidia-smi` line and the
 `kernels` line; the last line is the device summary.
@@ -589,11 +616,13 @@ def run_counted(torch, fn):
 
 
 def require_launches(path: str, launches: dict, want: dict) -> None:
-    """want: kernel -> "once" (exactly 1), "some" (>= 1) or "none" (0)."""
+    """want: kernel -> "once" (exactly 1), "some" (>= 1), "none" (0) or
+    an exact count."""
     ok = {"once": lambda n: n == 1, "some": lambda n: n >= 1,
           "none": lambda n: n == 0}
     bad = {k: launches[k] for k, rule in want.items()
-           if not ok[rule](launches[k])}
+           if not (launches[k] == rule if isinstance(rule, int)
+                   else ok[rule](launches[k]))}
     if bad:
         raise AssertionError(f"{path}: launches {bad} break {want}")
 
@@ -1182,7 +1211,337 @@ def phase_oracle(blobs: dict, corpus_path: str) -> None:
                                  "oracle's")
 
 
+def http_post(url: str, body: bytes):
+    """(reply body, its X-MHC-Seconds, the client's wall seconds)."""
+    import urllib.request
+    req = urllib.request.Request(url, data=body, method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = r.read()
+        codec_s = float(r.headers["X-MHC-Seconds"])
+    return out, codec_s, time.perf_counter() - t0
+
+
+def http_get(url: str) -> bytes:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read()
+
+
+def phase_serve(torch, data: bytes, dev) -> None:
+    """The codec service in this process on cuda:0 (`serve.make_server`,
+    served from a thread after `serve.warmup`), its clients over
+    urllib: the 100 MB corpus compressed in both modes (the reference
+    containers) and decompressed (the corpus), the Markov pair counted
+    (K1 and K3 once per chunk, K11 once; K7m and its table build once
+    per chunk); eight concurrent 1 MB clients (4 Markov, 4 order-0, one
+    block of 1 MB), each reply the 1 MB reference; a garbage container
+    (400); /healthz; /stats counting every request and error. Each
+    request's client wall time beside its X-MHC-Seconds."""
+    import threading
+    import urllib.error
+    from mhc_tpu_torch import api, serve
+    from mhc_tpu_torch.utils.corpus import make_corpus
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve.warmup(device=dev)
+    warmup_s = time.perf_counter() - t0
+    srv = serve.make_server("127.0.0.1", 0, device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+    n_chunks = len(api._chunks(0, -(-len(data) // api.DEFAULT_DECODE_UNIT),
+                               api.DEFAULT_DECODE_UNIT))
+    requests = {}
+    try:
+        for mode, ref_len, ref_sha in (
+                ("markov", REF_100MB_LEN, REF_100MB_SHA256),
+                ("huffman", REF_ORDER0_100MB_LEN, REF_ORDER0_100MB_SHA256)):
+            (blob, c_s, c_wall), enc = run_counted(
+                torch, lambda: http_post(f"{url}/compress?mode={mode}", data))
+            check_container(f"serve /compress?mode={mode}", blob, ref_len,
+                            ref_sha)
+            (back, d_s, d_wall), dec = run_counted(
+                torch, lambda: http_post(f"{url}/decompress", blob))
+            if back != data:
+                raise AssertionError(f"serve /decompress ({mode}) did not "
+                                     "return the corpus")
+            del back
+            if mode == "markov":
+                require_launches("serve /compress (Markov)", enc, {
+                    "markov_hist": n_chunks, "pack_units": n_chunks,
+                    "code_lengths": 1, "decode_units": 0})
+                require_launches("serve /decompress (Markov)", dec, {
+                    "decode_units": n_chunks, "decode_lut": n_chunks,
+                    "markov_hist": 0, "pack_units": 0, "code_lengths": 0})
+            requests[f"compress_100mb_{mode}"] = {
+                "client_wall_s": c_wall, "x_mhc_seconds": c_s,
+                "launches": enc, "container_bytes": len(blob)}
+            requests[f"decompress_100mb_{mode}"] = {
+                "client_wall_s": d_wall, "x_mhc_seconds": d_s,
+                "launches": dec}
+        small = make_corpus(1 << 20)
+        refs = {"markov": REF_1MB_SHA256, "huffman": REF_ORDER0_1MB_SHA256}
+        clients = ["markov", "huffman"] * 4
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(clients)) as pool:
+            replies = list(pool.map(lambda m: http_post(
+                f"{url}/compress?mode={m}&block_size=1048576", small),
+                clients))
+        concurrent_wall = time.perf_counter() - t0
+        for mode, (blob, _, _) in zip(clients, replies):
+            if hashlib.sha256(blob).hexdigest() != refs[mode]:
+                raise AssertionError(f"serve: a concurrent 1 MB {mode} "
+                                     "reply is not the reference container")
+        requests["compress_1mb_concurrent_8"] = {
+            "modes": clients, "all_clients_wall_s": concurrent_wall,
+            "client_wall_s": [r[2] for r in replies],
+            "x_mhc_seconds": [r[1] for r in replies]}
+        try:
+            http_post(f"{url}/decompress", b"MHTC but not a container")
+        except urllib.error.HTTPError as e:
+            garbage = e.code
+        else:
+            garbage = 200
+        if garbage != 400:
+            raise AssertionError(f"serve: a garbage container got {garbage}")
+        if http_get(f"{url}/healthz") != b"ok":
+            raise AssertionError("serve: /healthz is not ok")
+        stats = json.loads(http_get(f"{url}/stats"))
+        sent = 4 + len(clients) + 1
+        if stats["requests"] != sent or stats["errors"] != 1:
+            raise AssertionError(f"serve: /stats {stats} after {sent} "
+                                 "requests and 1 error")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    emit("serve", n_bytes=len(data), device=str(dev), warmup_s=warmup_s,
+         n_chunks=n_chunks, requests=requests, garbage_status=garbage,
+         stats=stats)
+
+
+def start_group(cmd, **kw):
+    """Popen in a session of its own, so that `stop_group` ends the
+    command and every process it started."""
+    return subprocess.Popen(cmd, cwd=REPO, start_new_session=True, **kw)
+
+
+def stop_group(proc) -> None:
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def run_group(cmd, timeout: float, env=None):
+    """(exit code, stdout, stderr, wall seconds) of `cmd`; on timeout its
+    whole session is killed and the phase fails."""
+    t0 = time.perf_counter()
+    proc = start_group(cmd, env=env, stdout=subprocess.PIPE,
+                       stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{cmd} ran over {timeout} s") from None
+    finally:
+        stop_group(proc)
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def phase_serve_cli() -> None:
+    """`python -m mhc_tpu_torch.serve --port 0` as a user starts it: its
+    warm-up and bound port read from its output, /healthz and a 1 MB
+    round trip, then SIGINT, which must end it with exit 0; the wall
+    time to `listening on`. Then the same command with no card visible
+    (CUDA_VISIBLE_DEVICES empty) and no --device must exit non-zero with
+    resolve_device's message: no CPU fallback."""
+    import queue
+    import signal
+    import threading
+    from mhc_tpu_torch.ops.kernels import _build
+    from mhc_tpu_torch.utils.corpus import make_corpus
+    cmd = [sys.executable, "-m", "mhc_tpu_torch.serve", "--port", "0"]
+    lines: queue.Queue = queue.Queue()
+    log_path = os.path.join(_build.BUILD_DIR, "serve_cli.stderr")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = start_group(cmd, stdout=subprocess.PIPE, stderr=log,
+                           text=True)
+    try:
+        reader = threading.Thread(
+            target=lambda: [lines.put(ln) for ln in proc.stdout],
+            daemon=True)
+        reader.start()
+        out, deadline = [], time.monotonic() + 300
+        while not (out and out[-1].startswith("mhc-serve listening on ")):
+            try:
+                out.append(lines.get(timeout=1).strip())
+            except queue.Empty:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"serve_cli: no `listening on` (exit "
+                        f"{proc.poll()}); output {out}") from None
+        startup_s = time.perf_counter() - t0
+        warmup = next(ln for ln in out if ln.startswith("warmup done in "))
+        port = int(out[-1].rsplit(":", 1)[1])
+        url = f"http://127.0.0.1:{port}"
+        if http_get(f"{url}/healthz") != b"ok":
+            raise AssertionError("serve_cli: /healthz is not ok")
+        small = make_corpus(1 << 20)
+        blob, c_s, c_wall = http_post(
+            f"{url}/compress?block_size=1048576", small)
+        check_container("serve_cli /compress", blob, REF_1MB_LEN,
+                        REF_1MB_SHA256)
+        back, d_s, d_wall = http_post(f"{url}/decompress", blob)
+        if back != small:
+            raise AssertionError("serve_cli: /decompress did not return "
+                                 "the input")
+        proc.send_signal(signal.SIGINT)
+        code = proc.wait(timeout=60)
+        if code != 0:
+            with open(log_path) as f:
+                raise AssertionError(f"serve_cli: exit {code} after SIGINT:"
+                                     f" {f.read()[-2000:]}")
+    finally:
+        stop_group(proc)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    no_card = run_group(cmd, 300, env=env)
+    if (no_card[0] == 0 or "torch.cuda.is_available() is false"
+            not in no_card[2] or "listening on" in no_card[1]):
+        raise AssertionError(f"serve_cli without a card: exit {no_card[0]}"
+                             f", stderr {no_card[2][-2000:]}")
+    emit("serve_cli", startup_wall_s=startup_s, printed=out,
+         warmup=warmup, compress_1mb={"client_wall_s": c_wall,
+                                      "x_mhc_seconds": c_s},
+         decompress_1mb={"client_wall_s": d_wall, "x_mhc_seconds": d_s},
+         sigint_exit=code, no_card_exit=no_card[0],
+         no_card_error=no_card[2].strip().splitlines()[-1],
+         no_card_wall_s=no_card[3])
+
+
+def trace_line(err: str, what: str) -> dict:
+    lines = [ln for ln in err.splitlines()
+             if ln.startswith(f"[mhc-trace {what}] ")]
+    if len(lines) != 1:
+        raise AssertionError(f"trace: {len(lines)} `mhc-trace {what}` "
+                             "lines")
+    return json.loads(lines[0].split("] ", 1)[1])
+
+
+def phase_trace(torch, data: bytes, dev) -> None:
+    """api.compress / api.decompress of the 100 MB Markov corpus with
+    MHC_TRACE=1 (stderr captured) and without, in turns (traced,
+    untraced, untraced, traced): the same container, the reference's;
+    the traced phases of the faster traced call, the sum of their
+    seconds beside that call's wall; the faster untraced call's wall."""
+    import contextlib
+    import io
+    from mhc_tpu_torch import api
+    torch.cuda.empty_cache()
+    runs: dict = {"traced": [], "untraced": []}
+    for traced in (True, False, False, True):
+        err = io.StringIO()
+        if traced:
+            os.environ["MHC_TRACE"] = "1"
+        try:
+            with contextlib.redirect_stderr(err):
+                blob, c = wall_s(torch, lambda: api.compress(data,
+                                                             device=dev))
+                back, d = wall_s(torch, lambda: api.decompress(blob,
+                                                               device=dev))
+        finally:
+            os.environ.pop("MHC_TRACE", None)
+        check_container(f"trace (traced={traced})", blob, REF_100MB_LEN,
+                        REF_100MB_SHA256)
+        if back != data:
+            raise AssertionError("trace: api.decompress did not return "
+                                 "the input")
+        del back
+        run = {"compress_s": c, "decompress_s": d}
+        if traced:
+            for what in ("compress", "decompress"):
+                phases = trace_line(err.getvalue(), what)
+                run[f"{what}_phases"] = phases
+                run[f"{what}_phase_sum_s"] = sum(
+                    p["seconds"] for p in phases.values())
+        elif "mhc-trace" in err.getvalue():
+            raise AssertionError("trace: an untraced call printed a trace")
+        runs["traced" if traced else "untraced"].append(run)
+    best = {k: min(v, key=lambda r: r["compress_s"] + r["decompress_s"])
+            for k, v in runs.items()}
+    emit("trace", n_bytes=len(data), mode="markov", **best)
+
+
+def phase_profile(torch, data: bytes, dev, age_s: float) -> None:
+    """metrics.torch_profile around engine.encode + engine.decode of the
+    100 MB Markov corpus, run twice in one window: the trace file is
+    written, and it names each kernel of the main path by its
+    `__global__` name, with each one's device time and how many of its
+    two launches the trace holds. The first pass is there because
+    torch.profiler on this machine loses the first kernels of a window,
+    more of them the longer the process has run (PERF.md §7); `age_s`,
+    the process's age at the window, is reported beside the count."""
+    import glob
+    import shutil
+    from mhc_tpu_torch import engine
+    from mhc_tpu_torch.ops.kernels import _build
+    from mhc_tpu_torch.utils import metrics
+    outdir = os.path.join(_build.BUILD_DIR, "profile")
+    shutil.rmtree(outdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    st = engine.stage(data, device=dev)
+    engine.decode(engine.encode(st))
+    with metrics.torch_profile(outdir, dev):
+        for _ in range(2):
+            enc = engine.encode(st)
+            out = engine.decode(enc)
+    if engine.fetch_bytes(enc, out) != data:
+        raise AssertionError("profile: the round trip is not bit-exact")
+    (path,) = glob.glob(os.path.join(outdir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    want = {"markov_hist": "markov_hist_kernel",
+            "code_lengths": "code_lengths_kernel",
+            "pack_units": "pack_units_kernel",
+            "decode_lut": "decode_lut_kernel",
+            "decode_units": "decode_units_kernel"}
+    found = {}
+    for name, fn in want.items():
+        hits = [e for e in kernels if fn in e.get("name", "")]
+        if not hits:
+            raise AssertionError(f"profile: the trace does not name {fn}")
+        found[name] = {"of_2_launches": len(hits),
+                       "device_us": [e.get("dur") for e in hits]}
+    emit("profile", trace_file=os.path.relpath(path, REPO),
+         trace_bytes=os.path.getsize(path), n_events=len(events),
+         n_kernel_events=len(kernels), process_age_s=age_s, kernels=found)
+
+
+def phase_dryrun() -> None:
+    """`python -m mhc_tpu_torch.parallel.dryrun` as a user runs it: one
+    rank (NCCL on cuda:0, the default on a card) and two gloo ranks
+    sharing cuda:0."""
+    import torch
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    runs = {}
+    for args in (["--ranks", "1"], ["--ranks", "2", "--backend", "gloo"]):
+        code, out, err, wall = run_group(
+            [sys.executable, "-m", "mhc_tpu_torch.parallel.dryrun", *args],
+            600, env=env)
+        if code != 0:
+            raise AssertionError(f"dryrun {args}: exit {code}: "
+                                 f"{err[-3000:]}")
+        runs[" ".join(args)] = {"wall_s": wall,
+                                "stdout": out.strip().splitlines()}
+    emit("dryrun", runs=runs)
+
+
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1230,6 +1589,11 @@ def main() -> int:
     phase_sharded(torch, corpus_path)
     phase_corrupt(torch, markov_blob, data, du64k_blob, dev)
     phase_oracle({"em": markov_blob, "e0": order0_blob}, corpus_path)
+    phase_serve(torch, data, dev)
+    phase_serve_cli()
+    phase_trace(torch, data, dev)
+    phase_profile(torch, data, dev, time.perf_counter() - started)
+    phase_dryrun()
     # each kernel's launches on the path that runs it (K3: the main path;
     # the order-0 path's launches are in its own line)
     path_of = {"order0_hist": order0_launches,

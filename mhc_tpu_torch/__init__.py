@@ -12,8 +12,11 @@ pack_method="dense"; or the lookup and the bubble-stream pack,
 pack_method="pallas" — and decode), through the device-resident
 `engine`, the chunked host-bytes `compress`/`decompress`, the file
 functions with segment chaining, the `hybrid` host/device split, the
-data-parallel sharded pipeline on `torch.distributed` (`parallel/`) and
-the CLI (`python -m mhc_tpu_torch.cli encode|decode|stat`).
+data-parallel sharded pipeline on `torch.distributed` (`parallel/`),
+the CLI (`python -m mhc_tpu_torch.cli encode|decode|stat`), the HTTP
+codec service (`python -m mhc_tpu_torch.serve`) and the observability
+of `utils.metrics` (`Trace`, the `MHC_TRACE` phase trace of `compress` /
+`decompress`, `torch_profile`, `scaling_report`).
 `device=None` means the first CUDA card and raises without one; the CPU
 runs only when named.
 """

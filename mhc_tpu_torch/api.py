@@ -26,6 +26,20 @@ them over the ranks of a `torch.distributed` world
 (`parallel/pipeline.py`), whose ranks each run `encode_range` and
 `decode_range` on their share.
 
+With `MHC_TRACE` set, `compress` and `decompress` each print one
+`[mhc-trace compress] {json}` / `[mhc-trace decompress] {json}` line to
+stderr (`utils.metrics.Trace`), as the reference does: per phase its
+seconds, bytes, GB/s and calls, every phase ending in a whole-device
+synchronisation (so a traced call overlaps nothing and runs slower than
+an untraced one). Compress: `blockify` (filling the staging buffers),
+`h2d`, `tables` (the histograms and the table build), `crc32`, `pack`
+(`engine.encode` of a chunk), `d2h` (the payload's copy, then its cut
+to the container layout) and `container`; decompress: `h2d`, `decode`
+(`engine.decode` of a chunk: its tables, expansion, K7 and literal
+overwrite, so the reference's decode-side `tables` and `expand` fall in
+it), `d2h` and `crc32`. The reference's `compact` and `marshal` have no
+stage of their own here. Unset, no phase synchronises anything.
+
 Not ported: the reference's d2h split into sub-buffers (`_fetch_subs`,
 `_split_flat`: a workaround for its relay), its `MHC_ENC_FETCH` variants
 and its Mosaic compile-error fallback. There is one path: compaction on
@@ -35,7 +49,9 @@ the device, then one copy of the dense payload.
 from __future__ import annotations
 
 import os
+import sys
 import zlib
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -99,6 +115,19 @@ def resolve_decode_unit(block_size: int, decode_unit: int | None,
     if du != block_size and du * MAX_CODE_LEN // 8 >= (1 << 16):
         raise ValueError(f"decode_unit {du} too large for u16 unit index")
     return du
+
+
+def _tracer():
+    if os.environ.get("MHC_TRACE"):
+        from .utils.metrics import Trace
+        return Trace()
+    return None
+
+
+def _phases(trace):
+    """`trace.phase`, or (trace None) a context that does nothing."""
+    return trace.phase if trace is not None else (
+        lambda *a, **k: nullcontext())
 
 
 def _chunks(lo: int, hi: int, du: int):
@@ -187,69 +216,86 @@ def compress(data: bytes, mode: str = "markov",
     from . import engine
     model = get_model(mode)
     pack_method = engine.check_pack_method(pack_method)
-    if block_size & (block_size - 1):
+    if block_size <= 0 or block_size & (block_size - 1):
         raise ValueError("block_size must be a power of two")
     du = resolve_decode_unit(block_size, decode_unit, model.markov)
     if len(data) == 0:
         return _empty_container(model, block_size, du,
                                 zlib.crc32(b"") if crc else None)
+    trace = _tracer()
     lengths, bit_lens, payload, checksum = encode_range(
         data, 0, -(-len(data) // du), model, block_size, du,
-        resolve_device(device), pack_method, crc)
-    return container.build_container(
-        model.mode, len(data), block_size, lengths, bit_lens, payload,
-        checksum, decode_unit=du)
+        resolve_device(device), pack_method, crc, trace=trace)
+    with _phases(trace)("container", len(data)):
+        blob = container.build_container(
+            model.mode, len(data), block_size, lengths, bit_lens, payload,
+            checksum, decode_unit=du)
+    if trace is not None:
+        print(f"[mhc-trace compress] {trace.dumps()}", file=sys.stderr)
+    return blob
 
 
 def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
                  du: int, dev, pack_method: str = "fused", crc: bool = True,
-                 reduce_counts=None):
+                 reduce_counts=None, trace=None):
     """Units [lo, hi) of `data` (units past its end are empty and code to
     no bits) through the engine on `dev`, in chunks of CHUNK_BYTES. Pass
     1 copies every chunk to the device and histograms it, the counts
     summed there in int64 and handed to `reduce_counts` (None: kept as
     they are; the sharded pipeline sums them over its ranks), then one
     table build (`EntropyModel.lengths_for`); pass 2 packs each chunk
-    and copies its payload back. Returns (host uint8 lengths, (hi - lo,)
+    and copies its payload back. `trace` (a `utils.metrics.Trace`, or
+    None) times the phases. Returns (host uint8 lengths, (hi - lo,)
     int64 bit lengths, the container-layout payload in pieces, the crc32
     of all of `data` or None)."""
     from . import engine
+    ph = _phases(trace)
     flat = np.frombuffer(data, dtype=np.uint8)
     n = flat.size
     copier = _Copier(dev)
     staged, counts = [], None
     for a, b in _chunks(lo, hi, du):
         seg = flat[min(a * du, n): min(b * du, n)]
-        units = copier.staging((b - a, du), torch.uint8)
-        u = units.numpy().reshape(-1)
-        u[: seg.size] = seg
-        u[seg.size:] = 0
-        n_valid = copier.staging((b - a,), torch.int32)
-        n_valid.numpy()[:] = np.clip(n - np.arange(a, b) * du, 0, du)
-        st = engine.Staged(
-            mode=model.name, block_size=block_size, decode_unit=du,
-            orig_len=seg.size, n_units=b - a,
-            units=copier.ready(copier.start_to_device(units)),
-            n_valid=copier.ready(copier.start_to_device(n_valid)))
-        c = model.histogram(st.units, st.n_valid).long()
-        counts = c if counts is None else counts + c
+        with ph("blockify", seg.size):
+            units = copier.staging((b - a, du), torch.uint8)
+            u = units.numpy().reshape(-1)
+            u[: seg.size] = seg
+            u[seg.size:] = 0
+            n_valid = copier.staging((b - a,), torch.int32)
+            n_valid.numpy()[:] = np.clip(n - np.arange(a, b) * du, 0, du)
+        with ph("h2d", units.numel() + 4 * n_valid.numel(), sync=dev):
+            st = engine.Staged(
+                mode=model.name, block_size=block_size, decode_unit=du,
+                orig_len=seg.size, n_units=b - a,
+                units=copier.ready(copier.start_to_device(units)),
+                n_valid=copier.ready(copier.start_to_device(n_valid)))
+        with ph("tables", seg.size, sync=dev):
+            c = model.histogram(st.units, st.n_valid).long()
+            counts = c if counts is None else counts + c
         staged.append(st)
     # the host's checksum runs while the device works through pass 1
-    checksum = (zlib.crc32(data) & 0xFFFFFFFF) if crc else None
-    if reduce_counts is not None:
-        counts = reduce_counts(counts)
-    lengths = model.lengths_for(counts)
+    with ph("crc32", n):
+        checksum = (zlib.crc32(data) & 0xFFFFFFFF) if crc else None
+    with ph("tables", sync=dev):
+        if reduce_counts is not None:
+            counts = reduce_counts(counts)
+        lengths = model.lengths_for(counts)
     # pass 2: pack and compact each chunk; the copy of its payload to the
     # host overlaps the next chunk's kernels
     payload, bit_lens, pending = [], [], []
 
     def finish(enc, handle):
-        payload.append(engine.payload_bytes(enc, copier.host(handle)))
+        with ph("d2h"):
+            payload.append(engine.payload_bytes(enc, copier.host(handle)))
 
     for st in staged:
-        enc = engine.encode(st, lengths=lengths, pack_method=pack_method)
+        with ph("pack", st.orig_len, sync=dev):
+            enc = engine.encode(st, lengths=lengths, pack_method=pack_method)
+            be = engine.be_payload(enc)
         bit_lens.append(enc.bit_lens)
-        pending.append((enc, copier.start_to_host(engine.be_payload(enc))))
+        with ph("d2h", be.numel(), sync=dev):
+            pending.append((enc, copier.start_to_host(be)))
+        del be
         if len(pending) > 1:
             finish(*pending.pop(0))
     for p in pending:
@@ -300,20 +346,27 @@ def decompress(blob: bytes, verify: bool = True, device=None) -> bytes:
     dev = resolve_device(device)
     # before any upload or allocation
     _, byte_lens, starts = check_parsed(meta)
-    data = decode_range(blob, meta, starts, 0, len(byte_lens), dev)
-    if verify:
-        container.verify_crc(data, meta)
+    trace = _tracer()
+    data = decode_range(blob, meta, starts, 0, len(byte_lens), dev,
+                        trace=trace)
+    with _phases(trace)("crc32", len(data)):
+        if verify:
+            container.verify_crc(data, meta)
+    if trace is not None:
+        print(f"[mhc-trace decompress] {trace.dumps()}", file=sys.stderr)
     return data
 
 
 def decode_range(blob: bytes, meta, starts: np.ndarray, lo: int, hi: int,
-                 dev) -> bytes:
+                 dev, trace=None) -> bytes:
     """The original bytes of units [lo, hi) of a parsed container
     (`starts` from `check_parsed`), decoded on `dev` in chunks of
     CHUNK_BYTES: each chunk's payload copied to the device, decoded
     (engine.decode) and copied back, the next chunk's upload beside this
-    chunk's kernels."""
+    chunk's kernels. `trace` (a `utils.metrics.Trace`, or None) times the
+    phases."""
     from . import engine
+    ph = _phases(trace)
     du = meta.decode_unit or meta.block_size
     chunks = _chunks(lo, hi, du)
     if not chunks:
@@ -324,13 +377,15 @@ def decode_range(blob: bytes, meta, starts: np.ndarray, lo: int, hi: int,
 
     def upload(a, b):
         start, end = int(starts[a]), int(starts[b])
-        host = copier.staging((end - start,), torch.uint8)
-        host.numpy()[:] = src[start:end]
-        return copier.start_to_device(host)
+        with ph("h2d", end - start, sync=dev):
+            host = copier.staging((end - start,), torch.uint8)
+            host.numpy()[:] = src[start:end]
+            return copier.start_to_device(host)
 
     def finish(enc, handle):
         # a view of the host buffer: the one copy is the join below
-        out.append(copier.host(handle).reshape(-1)[: enc.orig_len])
+        with ph("d2h"):
+            out.append(copier.host(handle).reshape(-1)[: enc.orig_len])
 
     upload_next = upload(*chunks[0])
     for i, (a, b) in enumerate(chunks):
@@ -339,12 +394,17 @@ def decode_range(blob: bytes, meta, starts: np.ndarray, lo: int, hi: int,
         if i + 1 < len(chunks):
             upload_next = upload(*chunks[i + 1])
         enc = parsed_chunk(meta, a, b, payload)
-        pending.append((enc, copier.start_to_host(engine.decode(enc))))
+        with ph("decode", enc.orig_len, sync=dev):
+            rows = engine.decode(enc)
+        with ph("d2h", rows.numel(), sync=dev):
+            pending.append((enc, copier.start_to_host(rows)))
+        del rows
         if len(pending) > 1:
             finish(*pending.pop(0))
     for p in pending:
         finish(*p)
-    return b"".join(out)
+    with ph("d2h"):
+        return b"".join(out)
 
 
 def _sharded_mesh(sharded: bool, mesh, host_fraction, device):

@@ -3,8 +3,16 @@
 The analogue of the reference's `__graft_entry__.py::dryrun_multichip`,
 held against the port's own single-device path:
 
-    python -m mhc_tpu_torch.parallel.dryrun --ranks 2                 # gloo, CPU
-    python -m mhc_tpu_torch.parallel.dryrun --ranks 2 --backend nccl  # a card per rank
+    python -m mhc_tpu_torch.parallel.dryrun --ranks 2                  # NCCL, a card per rank
+    python -m mhc_tpu_torch.parallel.dryrun --ranks 2 --backend gloo   # ranks share the cards
+    python -m mhc_tpu_torch.parallel.dryrun --ranks 2 --device cpu     # gloo on the CPU
+
+The ranks run on the CUDA cards unless `--device cpu` names the CPU;
+without a card and without `--device cpu` the command exits non-zero
+before it spawns a rank (`config.resolve_device`). The backend is NCCL
+on the cards, which takes one card per rank (`--ranks` above the card
+count is refused), and gloo on the CPU. Gloo ranks on the cards run on
+`cuda:(rank % card count)`, so several share a card.
 
 Each rank runs `dryrun(mesh)`: the tiny `encode_sharded` /
 `decode_sharded` round trip (2 blocks per rank, a ragged tail); a 2 MB
@@ -27,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from .. import api, container
+from ..config import resolve_device
 from ..utils.corpus import make_corpus
 from . import pipeline
 from .mesh import Mesh, make_mesh
@@ -77,10 +86,11 @@ def dryrun(mesh: Mesh) -> None:
              f"({len(sb)} bytes, flags=0x{flags:02x})")
 
 
-def _rank(rank: int, world: int, backend: str, store: str) -> None:
-    if backend == "nccl":
-        torch.cuda.set_device(rank)
-        device = torch.device("cuda", rank)
+def _rank(rank: int, world: int, device_type: str, backend: str,
+          store: str) -> None:
+    if device_type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
     else:
         device = torch.device("cpu")
     dist.init_process_group(backend, store=dist.FileStore(store, world),
@@ -94,17 +104,28 @@ def _rank(rank: int, world: int, backend: str, store: str) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ranks", type=int, default=2)
-    p.add_argument("--backend", choices=["gloo", "nccl"], default="gloo")
+    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="cuda (default: the cards; raises without one) or "
+                        "cpu")
+    p.add_argument("--backend", choices=["gloo", "nccl"], default=None,
+                   help="default: nccl on the cards, gloo on the CPU")
     args = p.parse_args(argv)
-    if args.backend == "nccl" and args.ranks > torch.cuda.device_count():
+    try:
+        device_type = resolve_device(args.device).type
+    except RuntimeError as e:
+        raise SystemExit(f"dryrun: {e}") from None
+    backend = args.backend or ("nccl" if device_type == "cuda" else "gloo")
+    if backend == "nccl" and device_type != "cuda":
+        raise SystemExit("dryrun: NCCL ranks need the cards, not the CPU")
+    if backend == "nccl" and args.ranks > torch.cuda.device_count():
         raise SystemExit(f"dryrun: {args.ranks} NCCL ranks need as many "
                          f"cards; this machine has "
                          f"{torch.cuda.device_count()}")
     with tempfile.TemporaryDirectory() as tmp:
         torch.multiprocessing.spawn(
-            _rank, args=(args.ranks, args.backend,
+            _rank, args=(args.ranks, device_type, backend,
                          os.path.join(tmp, "store")), nprocs=args.ranks)
-    print(f"dryrun({args.ranks}, {args.backend}): ok", flush=True)
+    print(f"dryrun({args.ranks}, {backend}, {device_type}): ok", flush=True)
     return 0
 
 
