@@ -111,6 +111,17 @@ calls, after building and checking every kernel those paths run:
   17. dryrun: `python -m mhc_tpu_torch.parallel.dryrun --ranks 1` (NCCL
      on cuda:0, the default on a card) and `--ranks 2 --backend gloo`
      (two ranks sharing cuda:0) exit 0
+  18. probes: the calibration probes P1-P3 (csrc/probes.cu, built in
+     phase 2, whose SASS must hold IMMA / HMMA in the fetch cores and P2
+     and LDS / STS in P1's scratch body: counts on the `build` line):
+     every body's kernel == its plain version at 1 and 64 steps
+     (tolerance 0), P2 also == torch._int_mm (the library column) == an
+     int64 product; each loop body timed at the reference's steps, with
+     its bound (probe_bound), and its loop's clock64() cycles growing 4x
+     at least from a sixteenth of those steps; then `python -m
+     mhc_tpu_torch.bench.loop_calib`, `.mosaic_probe` and `.vpu_probe` in
+     subprocesses (their JSON lines; every body launched; each chk the
+     kernel's); the loop fit and the fetch-vs-pick times on one line
 Every phase prints one JSON line; any failure raises (non-zero exit, no
 final line). Before the last line come the `nvidia-smi` line and the
 `kernels` line; the last line is the device summary.
@@ -165,6 +176,16 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 # K11's serial merge: a dependent shared-memory load (29 cycles, measured
 # on an H100 at 1.995 GHz) per pick, at the H100 SXM's 1.98 GHz boost
 SMEM_CHAIN_S = 29 / 1.98e9
+# an integer op's dependent latency: `int_dep_ns_per_op` of
+# `python -m mhc_tpu_torch.bench.loop_calib` (the one-op chain c += c >> 1,
+# one LEA.HI an op in its SASS), measured on an NVIDIA H100 80GB HBM3 at
+# 700 W
+INT_DEP_S = 2.0286e-9   # ~4 cycles at 1.98 GHz
+# CUDA-core int32 ops: 64 INT32 lanes a SM (Hopper white paper) x 132 SMs
+# x 1.98 GHz; tensor cores, dense (NVIDIA data sheet, H100 SXM)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+TC_INT8_OPS_PER_S = 1979e12
+TC_BF16_OPS_PER_S = 989e12
 
 # the sharded phase's legs: (name, backend, ranks on cuda:0, modes)
 SHARDED_LEGS = (("nccl_1_rank", "nccl", 1, "markov"),
@@ -192,6 +213,22 @@ KERNELS = {
     # K11, the device table build: an XLA stage on the TPU, not Pallas
     "code_lengths": ("huffman.cu", "mhc_tpu/ops/huffman.py:289"),
 }
+# P1-P3, the calibration probes: one entry per body, named by its launch
+# counter; dep1_* is P1's one-op chain, the calibration of INT_DEP_S
+PROBE_BODIES = {
+    "loop_calib": ("bench/loop_calib.py:74", (
+        "chain_4", "chain_32", "chain_128", "chain_512", "scratch_8",
+        "store_32", "wide_1", "wide_4", "dep1_32", "dep1_512")),
+    "mosaic_probe": ("bench/mosaic_probe.py:44", ("i8_matmul",)),
+    "vpu_probe": ("bench/vpu_probe.py:41", (
+        "null_loop", "onehot_i32cmp_i8cast_plus_pick",
+        "onehot_bf16cmp_plus_pick_bf16", "onehot_16x16_i8mul_plus_pick",
+        "pick256_i32", "pick256_i8mul_i32sum", "pick256_i8mul_i8sum",
+        "pick256_f32", "fetch316_i8_matmul", "fetch316_bf16_matmul")),
+}
+KERNELS.update({f"{probe}/{body}": ("probes.cu", replaces)
+                for probe, (replaces, bodies) in PROBE_BODIES.items()
+                for body in bodies})
 
 
 def emit(phase: str, **fields) -> None:
@@ -254,13 +291,24 @@ def phase_build(names) -> None:
     """One nvcc per source, all started together."""
     from mhc_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
+
+    def timed_build(name):
+        start = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - start
+
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(_build.build, names))
+        seconds = dict(zip(names, pool.map(timed_build, names)))
     for name in names:
         with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
             ptxas = [ln.strip() for ln in f
                      if "registers" in ln or "spill" in ln]
-        emit("build", kernel=name, source=_build.source(name), ptxas=ptxas)
+        sass = {}
+        if name == "probes":
+            from mhc_tpu_torch.ops.kernels import probes_cuda
+            sass = probes_cuda.sass_counts()
+        emit("build", kernel=name, source=_build.source(name), ptxas=ptxas,
+             seconds=seconds[name], **({"sass": sass} if sass else {}))
     emit("build", all_seconds=round(time.perf_counter() - t0, 3))
 
 
@@ -1540,6 +1588,181 @@ def phase_dryrun() -> None:
     emit("dryrun", runs=runs)
 
 
+def probe_bound(name: str, steps: int) -> dict:
+    """The least time the card could take for body `name` (P2: one
+    256 x 256 x 256 product; P1 and P3: `steps` steps of its loop): the
+    largest of its operations at the card's peak rate for their type
+    (int32 on the CUDA cores, or the tensor cores' int8 or bf16), its
+    dependent chain (the integer ops a step must wait for, at INT_DEP_S;
+    a shared-memory round trip at SMEM_CHAIN_S) and its bytes (the carry
+    and the operands once each) at 3.35 TB/s."""
+    probe, body = name.split("/", 1)
+    lanes = 8 * 128
+    moved = 2 * 4 * lanes
+    ops_s = chain_s = 0.0
+    if probe == "loop_calib":
+        kind, n = body.rsplit("_", 1)
+        # int32 ops of one op of the body, and its dependent depth
+        ops, depth = {"chain": (3, 2 * INT_DEP_S),
+                      "store": (3, 2 * INT_DEP_S),
+                      "scratch": (1, SMEM_CHAIN_S + INT_DEP_S),
+                      # and; 64 compares, selects and adds; the carry add.
+                      # Depth: and, compare, select, a 3-input add tree
+                      # over the 65 terms (4 levels)
+                      "wide": (3 * 64 + 2, 7 * INT_DEP_S),
+                      "dep1": (2, INT_DEP_S)}[kind]
+        ops_s = steps * int(n) * ops * lanes / INT32_OPS_PER_S
+        chain_s = steps * int(n) * depth
+    elif probe == "mosaic_probe":
+        ops_s = 2 * 256 ** 3 / TC_INT8_OPS_PER_S
+        moved = 2 * 256 * 256 + 4 * 256 * 256
+    elif body.startswith("fetch316_"):
+        i8 = "_i8_" in body
+        ops_s = steps * 2 * 316 * 256 * lanes / (TC_INT8_OPS_PER_S if i8
+                                                 else TC_BF16_OPS_PER_S)
+        moved += 256 * 316 * (1 if i8 else 2)
+    elif body == "null_loop":
+        ops_s = steps * 2 * lanes / INT32_OPS_PER_S
+        chain_s = steps * 2 * INT_DEP_S
+    else:
+        # a compare, a select or product and an add for each of 256 k;
+        # depth: compare, select, a 3-input add tree of 256 terms (6
+        # levels), & 255
+        ops_s = steps * 3 * 256 * lanes / INT32_OPS_PER_S
+        chain_s = steps * 9 * INT_DEP_S
+        if body.startswith("pick256_"):
+            moved += 256 * 8 * (1 if "_i8" in body else 4)
+    bytes_s = moved / HBM_BYTES_PER_S
+    bound_s = max(ops_s, chain_s, bytes_s)
+    return {"bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if bound_s == bytes_s else "operations",
+            "held_to": ("chain_floor_ms" if bound_s == chain_s
+                        else "ops_ms" if bound_s == ops_s else "bytes_ms"),
+            "ops_ms": ops_s * 1e3, "chain_floor_ms": chain_s * 1e3,
+            "bytes_ms": bytes_s * 1e3, "bound_bytes": moved}
+
+
+def phase_probes(torch, dev, rows: dict) -> dict:
+    """P1-P3: every body's kernel against its plain version on the card
+    at 1 and 64 steps (tolerance 0; P2's product also against
+    torch._int_mm, the library column, and an int64 product on the host);
+    each loop body timed at the reference's steps (loop_calib 4,096,
+    vpu_probe 1,024, its fetch cores 256), and its loop's clock64()
+    cycles at those steps and a sixteenth of them, which must grow by 4x
+    at least (no step folded or hoisted; the launch's fixed cost is not in
+    the cycles). Returns {body: {"steps", "chk"}} at the reference's
+    steps, for the entry points' check."""
+    import numpy as np
+    from mhc_tpu_torch.bench import probes
+    full = {}
+    a, b = probes.i8_matmul_inputs(dev)
+    name = "mosaic_probe/i8_matmul"
+    (got,) = compare(torch, rows, name, lambda: probes.i8_matmul(a, b),
+                     lambda: probes.i8_matmul_plain(a, b), 10, 3,
+                     "256x256x256", bound_bytes=lambda out: nbytes(a, b, *out),
+                     library=lambda: torch._int_mm(a, b))
+    exact = a.cpu().numpy().astype(np.int64) @ b.cpu().numpy().astype(
+        np.int64)
+    same = (bool(torch.equal(got, torch._int_mm(a, b)))
+            and bool((got.cpu().numpy() == exact).all()))
+    emit("kernel", check="i8_matmul == torch._int_mm == int64 product",
+         equal=same)
+    if not same:
+        raise AssertionError("i8_matmul differs from torch._int_mm or the "
+                             "int64 product")
+    rows[name].update(probe_bound(name, 1))
+    rows[name]["share_of_bound"] = rows[name]["bound_ms"] / rows[name]["ms"]
+
+    def loop_run(body, x, steps, cycles=None):
+        return probes.loop_calib(body, x, steps, cycles)
+
+    def loop_plain(body, x, steps):
+        variant, n_ops = {**probes.LOOP_BODIES, **probes.DEP_BODIES}[body]
+        return probes.loop_calib_plain(variant, n_ops, x, steps)
+
+    def vpu_run(body, x, steps, cycles=None):
+        return probes.vpu_probe(body, x, steps,
+                                probes.vpu_operand(body, dev), cycles)
+
+    def vpu_plain(body, x, steps):
+        return probes.vpu_probe_plain(body, x, steps,
+                                      probes.vpu_operand(body, dev))
+
+    for probe, run, plain, x, iters in (
+            ("loop_calib", loop_run, loop_plain, probes.loop_input(dev),
+             probes.LOOP_ITERS),
+            ("vpu_probe", vpu_run, vpu_plain, probes.vpu_input(dev),
+             probes.VPU_ITERS)):
+        for body in PROBE_BODIES[probe][1]:
+            name = f"{probe}/{body}"
+            for steps in (1, 64):
+                compare(torch, rows, name,
+                        lambda: run(body, x, steps),
+                        lambda: plain(body, x, steps), 3, 1,
+                        f"steps_{steps}",
+                        bound_bytes=lambda out: nbytes(x, *out))
+            steps = (probes.vpu_steps(body, iters) if probe == "vpu_probe"
+                     else iters)
+            out, ms = min_ms(torch, lambda: run(body, x, steps), 3)
+            cycles = {}
+            for n in (steps // 16, steps):
+                c = torch.zeros(1, dtype=torch.int64, device=dev)
+                run(body, x, n, c)
+                cycles[n] = int(c.cpu())
+            growth = cycles[steps] / max(cycles[steps // 16], 1)
+            row = rows[name]
+            row.update(probe_bound(name, steps))
+            row.update(ms=ms, steps=steps,
+                       plain_ms=row["on_inputs"]["steps_64"]["plain_ms"],
+                       plain_steps=64, library_ms=None,
+                       share_of_bound=row["bound_ms"] / ms,
+                       loop_cycles={str(k): v for k, v in cycles.items()},
+                       cycles_growth_x16=growth)
+            full[name] = {"steps": steps, "chk": int(out.long().sum())}
+            emit("probe", kernel=name, steps=steps, ms=ms,
+                 bound_ms=row["bound_ms"], held_to=row["held_to"],
+                 loop_cycles=row["loop_cycles"], cycles_growth_x16=growth)
+            if growth < 4:
+                raise AssertionError(
+                    f"{name}: the loop's cycles grew {growth:.2f}x from "
+                    f"{steps // 16} to {steps} steps (at least 4x wanted): "
+                    "steps were folded or hoisted")
+    return full
+
+
+def phase_probe_entry_points(full: dict) -> dict:
+    """`python -m mhc_tpu_torch.bench.loop_calib`, `.mosaic_probe` and
+    `.vpu_probe` as a user runs them, each in a subprocess: exit 0, one
+    JSON line, every body's kernel launched (its own counters, from 0 in
+    the fresh process), each loop body's `chk` equal to the kernel's in
+    this process at the same steps, P2's checks true. Returns each
+    probe's JSON line."""
+    results = {}
+    for probe, (_, bodies) in PROBE_BODIES.items():
+        code, out, err, wall = run_group(
+            [sys.executable, "-m", f"mhc_tpu_torch.bench.{probe}"], 600)
+        if code != 0:
+            raise AssertionError(f"{probe}: exit {code}: {err[-3000:]}")
+        res = json.loads(out.strip().splitlines()[-1])
+        emit("probe_entry", probe=probe, wall_s=wall, result=res)
+        for body in bodies:
+            name = f"{probe}/{body}"
+            if res["launches"].get(name, 0) < 1:
+                raise AssertionError(f"{probe}: {name} was not launched "
+                                     f"({res['launches']})")
+            if name in full and res[body]["chk"] != full[name]["chk"]:
+                raise AssertionError(f"{probe}: {body} chk {res[body]['chk']}"
+                                     f" != the kernel's {full[name]['chk']}")
+        if res["platform"] != "gpu" or (
+                probe == "mosaic_probe"
+                and not (res["i8_matmul"] is True
+                         and res["hist_pallas_ok"] is True
+                         and res["launches"].get("markov_hist", 0) >= 1)):
+            raise AssertionError(f"{probe}: {res}")
+        results[probe] = res
+    return results
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -1550,7 +1773,7 @@ def main() -> int:
     from mhc_tpu_torch.ops.kernels import _build
     from mhc_tpu_torch.utils.corpus import make_corpus
     smi = phase_device(torch)
-    phase_build(("histogram", "encode", "decode", "huffman"))
+    phase_build(("histogram", "encode", "decode", "huffman", "probes"))
     dev = torch.device("cuda:0")
     data = make_corpus(CORPUS_BYTES)
     rows: dict = {}
@@ -1594,6 +1817,15 @@ def main() -> int:
     phase_trace(torch, data, dev)
     phase_profile(torch, data, dev, time.perf_counter() - started)
     phase_dryrun()
+    entry = phase_probe_entry_points(phase_probes(torch, dev, rows))
+    calib = entry["loop_calib"]
+    emit("probe_findings", loop_fit=calib["fit"],
+         int_dep_ns_per_op=calib["int_dep_ns_per_op"],
+         int_dep_ns_in_use=INT_DEP_S * 1e9,
+         fetch_vs_pick_us_per_step={
+             b: entry["vpu_probe"][b]["us_per_iter"]
+             for b in ("fetch316_i8_matmul", "fetch316_bf16_matmul",
+                       "pick256_i32", "pick256_i8mul_i32sum")})
     # each kernel's launches on the path that runs it (K3: the main path;
     # the order-0 path's launches are in its own line)
     path_of = {"order0_hist": order0_launches,
@@ -1601,6 +1833,9 @@ def main() -> int:
                "decode_lut_order0": order0_launches,
                "lookup_cl": dense_launches, "pack_cl": dense_launches,
                "bubble_pack": pallas_launches}
+    for probe, res in entry.items():    # a probe's bodies: its entry point
+        path_of.update({name: res["launches"] for name in res["launches"]
+                        if name.startswith(f"{probe}/")})
     for name, row in rows.items():
         row["launches"] = path_of.get(name, launches)[name]
     if set(rows) != set(KERNELS):

@@ -1,4 +1,4 @@
-"""ctypes binding for the repo's native host runtime (native/libmhc_host.so).
+"""ctypes binding for the repo's native host runtime (native/*.cpp).
 
 The port's own binding to the C++ library that `mhc_tpu` also uses: the
 deterministic Huffman length builder and the container's metadata
@@ -6,7 +6,14 @@ decoders, which keep a numpy fallback, so the codec also works where no
 C++ compiler is installed; and the threaded host unit codec of the
 hybrid executor (`join_rows` to `decode_units`), which has none and
 raises without the library: a caller that asks for host threads gets
-them or an error. The library is built on demand with `make -C native`.
+them or an error.
+
+The port compiles `native/mhc_host.cpp` and `native/mhc_codec.cpp` with
+the flags of `native/Makefile` into its own library under
+`build/mhc_tpu_torch/`, and never writes into `native/`. The build goes
+to a per-process temporary file that `os.replace` puts in place, so a
+loader in another process sees either no library or a whole one. It is
+rebuilt when it is older than either source.
 """
 
 from __future__ import annotations
@@ -20,7 +27,13 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE = os.path.join(_REPO, "native")
-_SO = os.path.join(_NATIVE, "libmhc_host.so")
+SOURCES = tuple(os.path.join(_NATIVE, f)
+                for f in ("mhc_host.cpp", "mhc_codec.cpp"))
+# native/Makefile's CXXFLAGS and its -shared
+CXXFLAGS = ["-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread",
+            "-shared"]
+BUILD_DIR = os.path.join(_REPO, "build", "mhc_tpu_torch")
+LIB_NAME = "libmhc_host.so"
 
 _HOST_VERSION = 2   # mhc_version()
 _CODEC_VERSION = 5  # mhc_codec_version()
@@ -29,31 +42,36 @@ _lib = None
 _tried = False
 
 
-def _stale() -> bool:
-    """The .so is missing or older than one of its sources."""
-    if not os.path.exists(_SO):
-        return True
-    so_t = os.path.getmtime(_SO)
-    return any(os.path.getmtime(os.path.join(_NATIVE, f)) > so_t
-               for f in os.listdir(_NATIVE) if f.endswith(".cpp"))
-
-
-def _load():
-    global _lib, _tried
-    if _tried:
-        return _lib
-    _tried = True
-    if _stale():
-        try:
-            subprocess.run(["make", "-C", _NATIVE], capture_output=True,
-                           timeout=120, check=False)
-        except (OSError, subprocess.TimeoutExpired):
-            pass
-    if not os.path.exists(_SO):
-        return None
+def build(build_dir: str = BUILD_DIR) -> str:
+    """Compile the host library into `build_dir` unless it is there and
+    newer than both sources; returns its path. Raises RuntimeError with
+    the compiler's output when the build fails."""
+    so = os.path.join(build_dir, LIB_NAME)
+    if (os.path.exists(so) and os.path.getmtime(so)
+            >= max(map(os.path.getmtime, SOURCES))):
+        return so
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+        r = subprocess.run(["g++", *CXXFLAGS, "-o", tmp, *SOURCES],
+                           capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"cannot build {so}: {e}") from e
+    if r.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"g++ failed to build {so} (exit {r.returncode})"
+                           f":\n{r.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load(build_dir: str = BUILD_DIR):
+    """The host library of `build_dir`, built if stale, typed; None when
+    it cannot be built or loaded or its versions are not the port's."""
+    try:
+        lib = ctypes.CDLL(build(build_dir))
+    except (OSError, RuntimeError):
         return None
     lib.mhc_split.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -91,7 +109,15 @@ def _load():
     lib.mhc_version.restype = ctypes.c_int
     if (lib.mhc_version() == _HOST_VERSION
             and lib.mhc_codec_version() == _CODEC_VERSION):
-        _lib = lib
+        return lib
+    return None
+
+
+def _load():
+    global _lib, _tried
+    if not _tried:
+        _tried = True
+        _lib = load()
     return _lib
 
 
@@ -201,8 +227,9 @@ def require():
     lib = _load()
     if lib is None:
         raise RuntimeError(
-            f"the native host library ({_SO}) is missing or failed to "
-            "build with `make -C native`")
+            "the native host library "
+            f"({os.path.join(BUILD_DIR, LIB_NAME)}) failed to build or "
+            "load")
     return lib
 
 

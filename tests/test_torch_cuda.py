@@ -12,11 +12,13 @@ import torch
 
 import mhc_tpu_torch
 from mhc_tpu_torch import api, engine, hybrid
+from mhc_tpu_torch.bench import loop_calib, mosaic_probe, probes, vpu_probe
 from mhc_tpu_torch.models.entropy import get_model
 from mhc_tpu_torch.ops import bitpack
 from mhc_tpu_torch.ops import huffman
 from mhc_tpu_torch.ops.kernels import (_build, decode_cuda, encode_cuda,
-                                       histogram_cuda, huffman_cuda)
+                                       histogram_cuda, huffman_cuda,
+                                       probes_cuda)
 from mhc_tpu_torch.parallel import pipeline
 
 pytestmark = pytest.mark.cuda
@@ -463,3 +465,87 @@ def test_sharded_world_of_one_on_the_card(dev, mode):
     blob = pipeline.compress_sharded(data, mode=mode, device=dev)
     assert blob == mhc_tpu_torch.compress(data, mode=mode, device="cpu")
     assert pipeline.decompress_sharded(blob, device=dev) == data
+
+
+# ---------------------------------------------------------------------------
+# P1-P3, the calibration probes (csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("iters", [1, 3, 64])
+@pytest.mark.parametrize("name", [*probes.LOOP_BODIES, *probes.DEP_BODIES])
+def test_loop_calib_kernel_equals_plain(dev, name, iters):
+    variant, n_ops = {**probes.LOOP_BODIES, **probes.DEP_BODIES}[name]
+    x = probes.loop_input(dev)
+    _build.LAUNCHES.clear()
+    got = probes.loop_calib(name, x, iters)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"loop_calib/{name}"] == 1
+    assert torch.equal(got, probes.loop_calib_plain(variant, n_ops, x, iters))
+
+
+@pytest.mark.parametrize("steps", [1, 3, 64])
+@pytest.mark.parametrize("name", probes.VPU_BODIES)
+def test_vpu_probe_kernel_equals_plain(dev, name, steps):
+    x = probes.vpu_input(dev)
+    operand = probes.vpu_operand(name, dev)
+    _build.LAUNCHES.clear()
+    got = probes.vpu_probe(name, x, steps, operand)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"vpu_probe/{name}"] == 1
+    assert torch.equal(got, probes.vpu_probe_plain(name, x, steps, operand))
+
+
+def test_i8_matmul_kernel_equals_plain_library_and_exact(dev):
+    a, b = probes.i8_matmul_inputs(dev)
+    got = probes.i8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.i8_matmul_plain(a, b))
+    assert torch.equal(got, torch._int_mm(a, b))
+    exact = a.cpu().numpy().astype(np.int64) @ b.cpu().numpy().astype(
+        np.int64)
+    assert (got.cpu().numpy() == exact).all()
+    rng = np.random.default_rng(3)           # another shape: 48 x 40 x 96
+    a2 = torch.from_numpy(rng.integers(-128, 128, (48, 96), np.int8)).to(dev)
+    b2 = torch.from_numpy(rng.integers(-128, 128, (96, 40), np.int8)).to(dev)
+    assert torch.equal(probes.i8_matmul(a2, b2), probes.i8_matmul_plain(a2,
+                                                                        b2))
+
+
+def test_probe_sass_has_tensor_core_products_and_shared_memory():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    counts = probes_cuda.sass_counts()
+    assert counts["vpu_fetch_kernelILb0E"]["IMMA"] > 0
+    assert counts["vpu_fetch_kernelILb1E"]["HMMA"] > 0
+    assert counts["i8_matmul_kernel"]["IMMA"] > 0
+    assert counts["loop_calib_kernelILi1ELi8E"]["LDS"] > 0
+    assert counts["loop_calib_kernelILi1ELi8E"]["STS"] > 0
+
+
+@pytest.mark.parametrize("name", ["null_loop", "pick256_i32",
+                                  "fetch316_i8_matmul"])
+def test_probe_loop_cycles_grow_with_steps(dev, name):
+    """The loop runs every step: its clock64() cycles grow 4x at least
+    from 64 steps to 1,024, as chip_smoke.py requires (no step folded or
+    hoisted)."""
+    x = probes.vpu_input(dev)
+    operand = probes.vpu_operand(name, dev)
+    cycles = {}
+    for steps in (64, 1024):
+        c = torch.zeros(1, dtype=torch.int64, device=dev)
+        probes.vpu_probe(name, x, steps, operand, cycles=c)
+        cycles[steps] = int(c)
+    assert cycles[1024] >= 4 * cycles[64] > 0
+
+
+def test_probe_entry_points_on_the_card(dev):
+    res = loop_calib.run(dev, iters=64)
+    assert res["platform"] == "gpu" and res["device"]
+    assert all(res["launches"][f"loop_calib/{n}"] == 4
+               for n in (*probes.LOOP_BODIES, *probes.DEP_BODIES))
+    res = vpu_probe.run(dev, 64)
+    assert all(res["launches"][f"vpu_probe/{n}"] == 4
+               for n in probes.VPU_BODIES)
+    res = mosaic_probe.run(dev, corpus_bytes=1 << 20)
+    assert res["i8_matmul"] is True and res["hist_pallas_ok"] is True
+    assert res["launches"] == {"markov_hist": 4, "mosaic_probe/i8_matmul": 4}

@@ -32,5 +32,7 @@ def test_the_port_imports_no_jax():
     assert got["forbidden"] == []
     for name in ("api", "engine", "cli", "hybrid", "serve", "utils.metrics",
                  "parallel.dryrun", "parallel.pipeline",
-                 "ops.kernels.decode_cuda"):
+                 "ops.kernels.decode_cuda", "ops.kernels.probes_cuda",
+                 "bench.probes", "bench.loop_calib", "bench.mosaic_probe",
+                 "bench.vpu_probe"):
         assert f"mhc_tpu_torch.{name}" in got["imported"], name

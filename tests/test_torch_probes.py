@@ -1,0 +1,369 @@
+"""The calibration probes P1-P3 of the port (`mhc_tpu_torch.bench`)
+against the reference's (`bench/loop_calib.py`, `mosaic_probe.py`,
+`vpu_probe.py`), on the CPU, exactly.
+
+The reference's bodies are closures inside each script's `main()`. Each
+script is loaded by file path (the root `bench.py` shadows the `bench/`
+directory as a package) and its `main()` run with
+`jax.experimental.pallas.pallas_call` wrapped so that it runs in
+interpret mode and records each call's output; the port's plain version
+of every body is held to those outputs with tolerance 0. P1's two
+longest chains run too long as plain step loops at the reference's
+4,096 steps, so they, like every body, are held at small step counts to a
+transcription of the reference's kernel (`bench/loop_calib.py:34-70`),
+which is itself held to the recorded outputs at 4,096 steps.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from mhc_tpu.ops import histogram as jax_histogram
+from mhc_tpu.ops.kernels import histogram_pallas
+from mhc_tpu_torch.bench import loop_calib, mosaic_probe, probes, vpu_probe
+from mhc_tpu_torch.ops import histogram
+from mhc_tpu_torch.ops.kernels import probes_cuda
+from mhc_tpu_torch.utils.corpus import make_corpus
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = torch.device("cpu")
+VPU_REF_ITERS = 16
+# P1 bodies whose plain step loop at 4,096 steps takes under ~2 s here
+LOOP_FAST = ("chain_4", "chain_32", "scratch_8", "store_32", "wide_1",
+             "wide_4")
+
+
+def _load_reference(name: str):
+    path = os.path.join(REPO, "bench", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_reference_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _recording_pallas_call(mp) -> list:
+    """Patch pallas_call to run in interpret mode; returns the list to
+    which each created call appends the list of its concrete outputs."""
+    calls = []
+    real = pl.pallas_call
+
+    def fake(kernel, **kw):
+        kw["interpret"] = True
+        f = real(kernel, **kw)
+        outs = []
+        calls.append(outs)
+
+        def run(*args):
+            out = f(*args)
+            if not isinstance(out, jax.core.Tracer):
+                outs.append(np.asarray(out))
+            return out
+        return run
+
+    mp.setattr(pl, "pallas_call", fake)
+    return calls
+
+
+def _one(outs: list) -> np.ndarray:
+    """The output of a call the reference ran several times (warm-up and
+    timed runs), checked the same every time."""
+    assert outs
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o, outs[0])
+    return outs[0]
+
+
+@pytest.fixture(scope="module")
+def loop_ref():
+    """bench/loop_calib.py's main() at its 4,096 steps: body -> output."""
+    ref = _load_reference("loop_calib")
+    with pytest.MonkeyPatch.context() as mp:
+        calls = _recording_pallas_call(mp)
+        assert ref.main() == 0
+    assert len(calls) == len(probes.LOOP_BODIES)
+    return {name: _one(outs)
+            for name, outs in zip(probes.LOOP_BODIES, calls, strict=True)}
+
+
+@pytest.fixture(scope="module")
+def vpu_ref():
+    """bench/vpu_probe.py's main() at argv 16: body -> output."""
+    ref = _load_reference("vpu_probe")
+    with pytest.MonkeyPatch.context() as mp:
+        calls = _recording_pallas_call(mp)
+        mp.setattr(sys, "argv", ["vpu_probe.py", str(VPU_REF_ITERS)])
+        assert ref.main() == 0
+    assert len(calls) == len(probes.VPU_BODIES)
+    return {name: _one(outs)
+            for name, outs in zip(probes.VPU_BODIES, calls, strict=True)}
+
+
+@pytest.fixture(scope="module")
+def mosaic_ref():
+    """bench/mosaic_probe.py's main() with `bench.make_corpus` stubbed to
+    64 KB: the int8 product, the matmul histogram and the Pallas one."""
+    ref = _load_reference("mosaic_probe")
+    small = make_corpus(1 << 16)
+    stub = types.ModuleType("bench")
+    stub.make_corpus = lambda n: small
+    got = {}
+    real_matmul = jax_histogram.histogram_markov
+    real_pallas = histogram_pallas.markov_hist_pallas
+
+    def matmul_hist(d, nv, **kw):
+        out = real_matmul(d, nv, **kw)
+        got.setdefault("hist_matmul", np.asarray(out))
+        return out
+
+    def pallas_hist(d, nv, **kw):
+        out = real_pallas(d, nv, **kw)
+        got.setdefault("hist_pallas", np.asarray(out))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        calls = _recording_pallas_call(mp)
+        mp.setitem(sys.modules, "bench", stub)
+        mp.setattr(jax_histogram, "histogram_markov", matmul_hist)
+        mp.setattr(histogram_pallas, "markov_hist_pallas", pallas_hist)
+        assert ref.main() == 0
+    got["i8_matmul"] = _one(calls[0])
+    got["data"] = np.frombuffer(small, np.uint8).reshape(-1, 8192)
+    return got
+
+
+# ---------------------------------------------------------------------------
+# P1 — loop_calib
+# ---------------------------------------------------------------------------
+
+def _transcribed_loop_calib(n_ops: int, variant: str, iters: int):
+    """bench/loop_calib.py:34-70 with ITERS as a parameter, run as the
+    reference runs it (pallas_call, here in interpret mode)."""
+    def kern(x_ref, o_ref, scr):
+        x = x_ref[:]
+        if variant == "wide":
+            big = jnp.broadcast_to(x[:, :, None], (8, 128, 64))
+            iota = jax.lax.broadcasted_iota(jnp.int32, (8, 128, 64), 2)
+
+        def body(i, c):
+            if variant == "chain":
+                for k in range(n_ops):
+                    c = (c + jnp.uint32(k + 1)) ^ (c >> jnp.uint32(1))
+            elif variant == "scratch":
+                for k in range(n_ops):
+                    scr[:] = c
+                    c = scr[:] + jnp.uint32(k + 1)
+            elif variant == "store":
+                for k in range(n_ops):
+                    c = (c + jnp.uint32(k + 1)) ^ (c >> jnp.uint32(1))
+
+                @pl.when((i & 1) == 1)
+                def _():
+                    o_ref[:] = c
+            elif variant == "wide":
+                for k in range(n_ops):
+                    sel = iota == jnp.broadcast_to(
+                        (c[:, :, None] & 63), (8, 128, 64))
+                    c = c + jnp.sum(
+                        jnp.where(sel, big, jnp.uint32(0)).astype(
+                            jnp.int32), axis=2).astype(jnp.uint32)
+            return c
+
+        o_ref[:] = jax.lax.fori_loop(0, iters, body, x)
+
+    f = pl.pallas_call(
+        kern,
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.uint32),
+        scratch_shapes=[pltpu.VMEM((8, 128), jnp.uint32)],
+        interpret=True)
+    x = jnp.arange(8 * 128, dtype=jnp.uint32).reshape(8, 128)
+    return np.asarray(f(x))
+
+
+def _loop_plain(name: str, iters: int) -> np.ndarray:
+    out = probes.loop_calib(name, probes.loop_input(CPU), iters)
+    assert out.dtype == torch.int32 and out.shape == (8, 128)
+    return out.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("name", LOOP_FAST)
+def test_loop_calib_plain_equals_reference_at_4096_steps(loop_ref, name):
+    np.testing.assert_array_equal(_loop_plain(name, probes.LOOP_ITERS),
+                                  loop_ref[name])
+
+
+@pytest.mark.parametrize("name", tuple(probes.LOOP_BODIES))
+def test_loop_calib_transcription_equals_reference_at_4096_steps(loop_ref,
+                                                                 name):
+    variant, n_ops = probes.LOOP_BODIES[name]
+    np.testing.assert_array_equal(
+        _transcribed_loop_calib(n_ops, variant, probes.LOOP_ITERS),
+        loop_ref[name])
+
+
+@pytest.mark.parametrize("iters", [1, 7])
+@pytest.mark.parametrize("name", tuple(probes.LOOP_BODIES))
+def test_loop_calib_plain_equals_transcription(name, iters):
+    variant, n_ops = probes.LOOP_BODIES[name]
+    np.testing.assert_array_equal(
+        _loop_plain(name, iters),
+        _transcribed_loop_calib(n_ops, variant, iters))
+
+
+@pytest.mark.parametrize("name", tuple(probes.DEP_BODIES))
+def test_loop_calib_one_op_chain(name):
+    """The calibration body (no reference): n dependent c += c >> 1 a
+    step, in numpy's uint32."""
+    n_ops = probes.DEP_BODIES[name][1]
+    c = np.arange(1024, dtype=np.uint32).reshape(8, 128)
+    for _ in range(3):
+        for _ in range(n_ops):
+            c = c + (c >> np.uint32(1))
+    np.testing.assert_array_equal(_loop_plain(name, 3), c)
+
+
+def test_loop_calib_entry_point_on_the_cpu(loop_ref):
+    res = loop_calib.run(CPU, iters=8)
+    assert res["iters"] == 8 and res["platform"] == "cpu"
+    for name in (*probes.LOOP_BODIES, *probes.DEP_BODIES):
+        assert set(res[name]) == {"s", "ns_per_iter", "chk"}
+        want = _loop_plain(name, 8).view(np.int32).astype(np.int64).sum()
+        assert res[name]["chk"] == want
+    assert set(res["fit"]) == {"a_ns_per_step", "b_ns_per_op"}
+    assert res["launches"] == {}
+
+
+# ---------------------------------------------------------------------------
+# P3 — vpu_probe
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", probes.VPU_BODIES)
+def test_vpu_probe_plain_equals_reference(vpu_ref, name):
+    steps = probes.vpu_steps(name, VPU_REF_ITERS)
+    out = probes.vpu_probe(name, probes.vpu_input(CPU), steps,
+                           probes.vpu_operand(name, CPU))
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), vpu_ref[name])
+
+
+@pytest.mark.parametrize("steps", [0, 1, 3])
+@pytest.mark.parametrize("name", probes.VPU_BODIES)
+def test_vpu_probe_plain_at_few_steps(name, steps):
+    """Short loops against the body's closed form: each one-hot pick
+    returns the carry; each table pick (8 c + row) & 255; each fetch the
+    byte sum of its 16 plane entries."""
+    c = np.arange(1024).reshape(8, 128) & 255
+    rows = np.arange(8)[:, None]
+    for _ in range(steps):
+        if name == "null_loop":
+            c = (c + 1) & 255
+        elif name.startswith("pick256_"):
+            c = (8 * c + rows) & 255
+        elif name.startswith("fetch316_"):
+            c = sum((c * 316 + j) & 255 for j in range(16)) & 255
+    out = probes.vpu_probe(name, probes.vpu_input(CPU), steps,
+                           probes.vpu_operand(name, CPU))
+    np.testing.assert_array_equal(out.numpy(), c)
+
+
+def test_vpu_probe_entry_point_on_the_cpu(vpu_ref):
+    res = vpu_probe.run(CPU, VPU_REF_ITERS)
+    assert res["iters"] == VPU_REF_ITERS and res["platform"] == "cpu"
+    for name in probes.VPU_BODIES:
+        assert set(res[name]) == {"s", "us_per_iter", "chk"}
+        assert res[name]["chk"] == int(vpu_ref[name].astype(np.int64).sum())
+
+
+def test_vpu_operands_are_the_references():
+    tab = np.arange(256 * 8, dtype=np.int32).reshape(256, 8) & 255
+    assert np.array_equal(probes.vpu_operand("pick256_i32", CPU).numpy(), tab)
+    assert np.array_equal(probes.vpu_operand("pick256_i8mul_i8sum",
+                                              CPU).numpy(), tab.astype(np.int8))
+    rng = np.arange(256 * 316, dtype=np.int32).reshape(256, 316)
+    assert np.array_equal(probes.vpu_operand("fetch316_i8_matmul",
+                                             CPU).numpy(),
+                          ((rng & 255) - 128).astype(np.int8))
+    bf = probes.vpu_operand("fetch316_bf16_matmul", CPU)
+    assert bf.dtype == torch.bfloat16
+    assert np.array_equal(bf.float().numpy(), (rng & 255).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# P2 — mosaic_probe
+# ---------------------------------------------------------------------------
+
+def test_i8_matmul_plain_equals_reference(mosaic_ref):
+    a, b = probes.i8_matmul_inputs(CPU)
+    out = probes.i8_matmul(a, b)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), mosaic_ref["i8_matmul"])
+
+
+def test_matmul_and_k1_histograms_equal_reference(mosaic_ref):
+    data = mosaic_ref["data"]
+    units = torch.from_numpy(data.copy())
+    nv = torch.full((data.shape[0],), 8192, dtype=torch.int32)
+    np.testing.assert_array_equal(mosaic_ref["hist_pallas"],
+                                  mosaic_ref["hist_matmul"])
+    np.testing.assert_array_equal(
+        probes.markov_hist_matmul(units, nv).numpy(),
+        mosaic_ref["hist_matmul"])
+    np.testing.assert_array_equal(histogram.histogram_markov(units,
+                                                             nv).numpy(),
+                                  mosaic_ref["hist_pallas"])
+
+
+def test_matmul_histogram_masks_and_chunks():
+    """Rows shorter than their stride and more than one chunk of 2^17
+    positions: the plain K1's counts."""
+    rng = np.random.default_rng(5)
+    units = torch.from_numpy(rng.integers(0, 256, (40, 4000), np.uint8))
+    nv = torch.from_numpy(rng.integers(0, 4001, 40).astype(np.int32))
+    assert torch.equal(probes.markov_hist_matmul(units, nv),
+                       histogram.histogram_markov(units, nv))
+
+
+def test_mosaic_probe_entry_point_on_the_cpu():
+    res = mosaic_probe.run(CPU, corpus_bytes=1 << 16)
+    assert res["platform"] == "cpu"
+    assert res["i8_matmul"] is True and res["hist_pallas_ok"] is True
+    assert res["hist_rows"] == [8, 8192]
+    for key in ("i8_matmul_s", "hist_matmul_s", "hist_pallas_s"):
+        assert res[key] >= 0
+
+
+# ---------------------------------------------------------------------------
+# The wrappers and the entry points without a card
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = probes.loop_input(CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        probes_cuda.loop_calib("chain_4", x, "chain", 4, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        probes_cuda.vpu_probe("null_loop", x, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        probes_cuda.i8_matmul(*probes.i8_matmul_inputs(CPU))
+
+
+@pytest.mark.parametrize("module", ["loop_calib", "mosaic_probe",
+                                    "vpu_probe"])
+def test_entry_point_without_a_card_exits_1(module):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-m", f"mhc_tpu_torch.bench.{module}"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 1
+    assert "torch.cuda.is_available() is false" in r.stderr
+    assert r.stdout == ""
