@@ -14,9 +14,13 @@ calls, after building and checking every kernel those paths run:
      resources printed)
   3. kernels: each kernel vs its plain PyTorch version on its path's own
      inputs — exact equality (integer codec, tolerance 0), CUDA-event
-     times (the kernel and the library call: per call over runs of 10
-     back to back; the plain version: single calls; minimum over the
-     runs), the bound (the bytes the function must move over 3.35 TB/s,
+     times (the kernel and the library call: `ms` per call over runs of
+     10 back to back, the host's enqueue in; `device_ms` and
+     `library_device_ms` the same 10 calls captured in a CUDA graph and
+     replayed, the device's time alone, null with its reason where a
+     call cannot be captured; the plain version: single calls; minimum
+     over the runs), the bound (the bytes the function must move over
+     3.35 TB/s,
      coded words counted as this run's bits give them; K11's chain floor
      beside it) and the library call over a prepared index
      (K1 and K2: a bare `torch.bincount`; K5: one `torch.take`, checked
@@ -112,11 +116,13 @@ calls, after building and checking every kernel those paths run:
      on cuda:0, the default on a card) and `--ranks 2 --backend gloo`
      (two ranks sharing cuda:0) exit 0
   18. probes: the calibration probes P1-P3 (csrc/probes.cu, built in
-     phase 2, whose SASS must hold IMMA / HMMA in the fetch cores and P2
-     and LDS / STS in P1's scratch body: counts on the `build` line):
-     every body's kernel == its plain version at 1 and 64 steps
-     (tolerance 0), P2 also == torch._int_mm (the library column) == an
-     int64 product; each loop body timed at the reference's steps, with
+     phase 2, whose SASS must hold IMMA / HMMA in the fetch cores, IGMMA
+     (wgmma) and no IMMA in P2, and LDS / STS in P1's scratch body:
+     counts on the `build` line): every body's kernel == its plain
+     version at 1 and 64 steps (tolerance 0), P2 also == torch._int_mm
+     (the library column) == an int64 product, and once at 4096^3 ==
+     torch._int_mm, timed beside it (not gated); each loop body timed
+     (ms and device_ms) at the reference's steps, with
      its bound (probe_bound), and its loop's clock64() cycles growing 4x
      at least from a sixteenth of those steps; then `python -m
      mhc_tpu_torch.bench.loop_calib`, `.mosaic_probe` and `.vpu_probe` in
@@ -173,14 +179,19 @@ REF_4MB_SHA256 = ("54f0867e82f83dd27606e1a1df827687"
 TIMED_REPS = 3
 KERNEL_BATCH = 10                # kernel and library calls per timed run
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
-# K11's serial merge: a dependent shared-memory load (29 cycles, measured
-# on an H100 at 1.995 GHz) per pick, at the H100 SXM's 1.98 GHz boost
+# a dependent shared-memory round trip (29 cycles, measured on an H100 at
+# 1.995 GHz), at the H100 SXM's 1.98 GHz boost: a pick of a merge that
+# reads its queue heads from shared memory waits on one
 SMEM_CHAIN_S = 29 / 1.98e9
 # an integer op's dependent latency: `int_dep_ns_per_op` of
 # `python -m mhc_tpu_torch.bench.loop_calib` (the one-op chain c += c >> 1,
 # one LEA.HI an op in its SASS), measured on an NVIDIA H100 80GB HBM3 at
 # 700 W
 INT_DEP_S = 2.0286e-9   # ~4 cycles at 1.98 GHz
+# K11's merge step (csrc/huffman.cu `merge`, two picks with both queue
+# heads in registers): its longest dependent chain, from one step's first
+# compare to the next's, is compare, select, compare, select, select, min
+K11_STEP_DEP_OPS = 6
 # CUDA-core int32 ops: 64 INT32 lanes a SM (Hopper white paper) x 132 SMs
 # x 1.98 GHz; tensor cores, dense (NVIDIA data sheet, H100 SXM)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -255,6 +266,61 @@ def min_ms(torch, fn, reps: int, batch: int = 1):
     return out, best
 
 
+def graph_ms(torch, fn, reps: int, batch: int = 1):
+    """(ms per call, None) on the device alone: `batch` calls of fn
+    captured in one CUDA graph (the wrappers launch on the current
+    stream, which capture records), the graph replayed once, then the
+    minimum over `reps` replays between CUDA events, divided by the
+    batch; the host's enqueue drops out. (None, reason) where the calls
+    cannot be captured (a call that waits on the device from the host)."""
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    reason = None
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            for _ in range(batch):
+                fn()
+        except Exception as e:      # the reason goes into the row
+            reason = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        try:
+            graph.capture_end()
+        except Exception as e:
+            reason = reason or f"{type(e).__name__}: {str(e)[:200]}"
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    if reason:
+        return None, reason
+    graph.replay()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / batch)
+    del graph
+    return best, None
+
+
+def device_fields(torch, fn, reps: int, batch: int, key: str) -> dict:
+    """{key: graph_ms} and, where it is null, {key + "_null_reason": why}."""
+    ms, why = graph_ms(torch, fn, reps, batch)
+    return {key: ms, **({f"{key}_null_reason": why} if why else {})}
+
+
+def shares(bound_ms: float, ms: float, device_ms) -> dict:
+    """The share of the bound by each time: `share_of_bound` (bound / ms)
+    and `device_share_of_bound` (bound / device_ms; null where device_ms
+    is)."""
+    return {"share_of_bound": bound_ms / ms,
+            "device_share_of_bound": (bound_ms / device_ms if device_ms
+                                      else None)}
+
+
 def max_abs_err(a, b) -> float:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -316,8 +382,12 @@ def compare(torch, rows: dict, name: str, kern, plain, reps: int,
             plain_reps: int, inputs: str = "markov", bound_bytes=None,
             library=None, symbols_per_unit=None, more=None):
     """Kernel `name` vs its plain version on one path's inputs
-    ("markov", "payload_route" or "order0"), tolerance 0; records the comparison in the
-    kernel's row and returns the kernel's outputs. bound_bytes(outputs)
+    ("markov", "payload_route" or "order0"), tolerance 0; records the
+    comparison in the kernel's row and returns the kernel's outputs. The
+    kernel's and the library call's times: `ms` per call over runs of
+    KERNEL_BATCH calls back to back (the host's enqueue in), `device_ms`
+    the same calls replayed from a CUDA graph (graph_ms: the device's
+    time alone), and `library_device_ms` likewise. bound_bytes(outputs)
     gives the bytes the function must move (no kernel here does
     arithmetic that takes longer at the card's peak rate than its bytes
     at the memory rate); `library` is one PyTorch call computing the same function (timed
@@ -326,6 +396,7 @@ def compare(torch, rows: dict, name: str, kern, plain, reps: int,
     path's inputs: its row's numbers are the first path's, its
     max_abs_err the largest, and `on_inputs` has each comparison."""
     got, ms = min_ms(torch, kern, reps, KERNEL_BATCH)
+    dev_ms = device_fields(torch, kern, reps, KERNEL_BATCH, "device_ms")
     ref, plain_ms = min_ms(torch, plain, plain_reps)
     got, ref = as_tuple(got), as_tuple(ref)
     err = max(max_abs_err(a, b) for a, b in zip(got, ref, strict=True))
@@ -334,9 +405,12 @@ def compare(torch, rows: dict, name: str, kern, plain, reps: int,
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     library_ms = (min_ms(torch, library, reps, KERNEL_BATCH)[1] if library
                   else None)
-    extra = {"bound_ms": bound_ms, "bound_by": "bytes",
-             "bound_bytes": moved, "share_of_bound": bound_ms / ms,
-             "library_ms": library_ms}
+    extra = {**dev_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+             "bound_bytes": moved, "library_ms": library_ms,
+             **(device_fields(torch, library, reps, KERNEL_BATCH,
+                              "library_device_ms") if library
+                else {"library_device_ms": None})}
+    extra.update(shares(bound_ms, ms, extra["device_ms"]))
     if symbols_per_unit:
         extra["ns_per_symbol"] = ms * 1e6 / symbols_per_unit
     extra.update(more or {})
@@ -420,16 +494,27 @@ def cl_packers_checks(torch, rows: dict, cl, fused, inputs: str,
                              f"on the {inputs} inputs")
 
 
-def k11_chain_floor_ms(counts) -> float:
-    """K11's latency floor on these counts: a row of m >= 2 symbols
-    merges in 2 (m - 1) dependent picks, each a shared-memory load;
-    all rows run at once, so the floor is the longest row's chain. K11
-    is held to this floor, which lies far above its bytes bound."""
+def k11_merge_steps(counts) -> int:
+    """The longest row's merge: m - 1 steps of two picks for a row of
+    m >= 2 symbols (every row runs at once)."""
     m = (counts.reshape(-1, 256) > 0).sum(dim=1)
     m = m[m >= 2]
-    if not m.numel():
-        return 0.0
-    return float(2 * (m.max() - 1)) * SMEM_CHAIN_S * 1e3
+    return int(m.max()) - 1 if m.numel() else 0
+
+
+def k11_chain_floor_ms(counts) -> float:
+    """K11's latency floor on these counts: the longest row's merge, each
+    step K11_STEP_DEP_OPS dependent integer ops at INT_DEP_S (3 a pick:
+    both queue heads in registers, no shared-memory load on the chain).
+    K11 is held to this floor, which lies far above its bytes bound."""
+    return k11_merge_steps(counts) * K11_STEP_DEP_OPS * INT_DEP_S * 1e3
+
+
+def k11_chain_floor_smem_ms(counts) -> float:
+    """The floor of a merge that waits on a shared-memory round trip every
+    pick (SMEM_CHAIN_S, 2 picks a step): what K11 was held to before its
+    queue heads moved into registers."""
+    return 2 * k11_merge_steps(counts) * SMEM_CHAIN_S * 1e3
 
 
 def host_build_ms(torch, model, counts) -> float:
@@ -457,11 +542,17 @@ def k11_checks(torch, rows: dict, model, counts, inputs: str) -> None:
         lambda: huffman_cuda.code_lengths_plain(flat), 10, 3, inputs,
         bound_bytes=lambda out: nbytes(flat, *out),
         more={"chain_floor_ms": floor_ms, "held_to": "chain_floor_ms",
+              "chain_floor_smem_ms": k11_chain_floor_smem_ms(flat),
               "host_build_ms": host_build_ms(torch, model, counts)})
     row = rows["code_lengths"]
-    share = floor_ms / row["on_inputs"][inputs]["ms"]
-    row["on_inputs"][inputs]["share_of_chain_floor"] = share
+    on = row["on_inputs"][inputs]
+    share = floor_ms / on["ms"]
+    on["share_of_chain_floor"] = share
+    if on["device_ms"]:
+        on["device_share_of_chain_floor"] = floor_ms / on["device_ms"]
     row.setdefault("share_of_chain_floor", share)
+    row.setdefault("device_share_of_chain_floor",
+                   on.get("device_share_of_chain_floor"))
     host = model.lengths_from_counts(counts.cpu().numpy())
     same = bool((lengths.reshape(counts.shape).cpu().numpy() == host).all())
     emit("kernel", check="code_lengths(counts) == host build",
@@ -1642,6 +1733,39 @@ def probe_bound(name: str, steps: int) -> dict:
             "bytes_ms": bytes_s * 1e3, "bound_bytes": moved}
 
 
+def i8_matmul_4096(torch, dev, row: dict) -> None:
+    """P2 once at 4096^3 beside torch._int_mm (recorded, not gated: how
+    far the design gets toward the tensor cores' int8 rate): equal to its
+    plain version and to torch._int_mm, bound by its operations at
+    1,979 TOP/s."""
+    import numpy as np
+    from mhc_tpu_torch.bench import probes
+    rng = np.random.default_rng(4096)
+    a, b = (torch.from_numpy(rng.integers(-128, 128, (4096, 4096),
+                                          np.int8)).to(dev)
+            for _ in range(2))
+    name, inputs = "mosaic_probe/i8_matmul", "4096x4096x4096"
+    got = compare(torch, {name: row}, name, lambda: probes.i8_matmul(a, b),
+                  lambda: probes.i8_matmul_plain(a, b), 5, 1, inputs,
+                  bound_bytes=lambda out: nbytes(a, b, *out),
+                  library=lambda: torch._int_mm(a, b))[0]
+    same = bool(torch.equal(got, torch._int_mm(a, b)))
+    on = row["on_inputs"][inputs]
+    ops_ms = 2 * 4096 ** 3 / TC_INT8_OPS_PER_S * 1e3
+    on.update(ops_ms=ops_ms, bytes_ms=on["bound_ms"],
+              bound_ms=max(ops_ms, on["bound_ms"]),
+              bound_by="operations" if ops_ms > on["bound_ms"] else "bytes",
+              equal_to_int_mm=same)
+    on.update(shares(on["bound_ms"], on["ms"], on["device_ms"]))
+    if on["device_ms"]:
+        on["device_tops"] = 2 * 4096 ** 3 / on["device_ms"] / 1e9
+    emit("kernel", check="i8_matmul == torch._int_mm at 4096^3", equal=same,
+         device_ms=on["device_ms"], library_device_ms=on["library_device_ms"],
+         bound_ms=on["bound_ms"], bound_by=on["bound_by"])
+    if not same:
+        raise AssertionError("i8_matmul differs from torch._int_mm at 4096^3")
+
+
 def phase_probes(torch, dev, rows: dict) -> dict:
     """P1-P3: every body's kernel against its plain version on the card
     at 1 and 64 steps (tolerance 0; P2's product also against
@@ -1671,7 +1795,9 @@ def phase_probes(torch, dev, rows: dict) -> dict:
         raise AssertionError("i8_matmul differs from torch._int_mm or the "
                              "int64 product")
     rows[name].update(probe_bound(name, 1))
-    rows[name]["share_of_bound"] = rows[name]["bound_ms"] / rows[name]["ms"]
+    rows[name].update(shares(rows[name]["bound_ms"], rows[name]["ms"],
+                             rows[name]["device_ms"]))
+    i8_matmul_4096(torch, dev, rows[name])
 
     def loop_run(body, x, steps, cycles=None):
         return probes.loop_calib(body, x, steps, cycles)
@@ -1704,6 +1830,8 @@ def phase_probes(torch, dev, rows: dict) -> dict:
             steps = (probes.vpu_steps(body, iters) if probe == "vpu_probe"
                      else iters)
             out, ms = min_ms(torch, lambda: run(body, x, steps), 3)
+            dev_ms = device_fields(torch, lambda: run(body, x, steps), 3, 1,
+                                   "device_ms")
             cycles = {}
             for n in (steps // 16, steps):
                 c = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -1712,15 +1840,18 @@ def phase_probes(torch, dev, rows: dict) -> dict:
             growth = cycles[steps] / max(cycles[steps // 16], 1)
             row = rows[name]
             row.update(probe_bound(name, steps))
-            row.update(ms=ms, steps=steps,
+            row.update(ms=ms, **dev_ms, steps=steps,
                        plain_ms=row["on_inputs"]["steps_64"]["plain_ms"],
                        plain_steps=64, library_ms=None,
-                       share_of_bound=row["bound_ms"] / ms,
+                       library_device_ms=None,
+                       **shares(row["bound_ms"], ms, dev_ms["device_ms"]),
                        loop_cycles={str(k): v for k, v in cycles.items()},
                        cycles_growth_x16=growth)
             full[name] = {"steps": steps, "chk": int(out.long().sum())}
             emit("probe", kernel=name, steps=steps, ms=ms,
-                 bound_ms=row["bound_ms"], held_to=row["held_to"],
+                 device_ms=row["device_ms"], bound_ms=row["bound_ms"],
+                 device_share_of_bound=row["device_share_of_bound"],
+                 held_to=row["held_to"],
                  loop_cycles=row["loop_cycles"], cycles_growth_x16=growth)
             if growth < 4:
                 raise AssertionError(

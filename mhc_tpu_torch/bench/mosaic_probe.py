@@ -2,7 +2,7 @@
 reference's bench/mosaic_probe.py):
 
   1. an int8 x int8 -> int32 product inside a kernel, on the tensor
-     cores (mma.sync m16n8k32), checked against an exact product;
+     cores (wgmma m64n128k32), checked against an exact product;
   2. the port's Markov histogram kernel K1 against the reference's
      one-hot matmul histogram, on 16 MB of the benchmark corpus as 8 KB
      rows: equal counts, and the time of each.

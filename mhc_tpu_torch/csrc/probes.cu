@@ -15,10 +15,20 @@
 //      calibration of an integer op's dependent latency, which the
 //      reference does not have).
 //   P2 i8_matmul_kernel replaces bench/mosaic_probe.py:44 (`i8_kernel`,
-//      :34-38): an int8 x int8 -> int32 product on the tensor cores,
-//      mma.sync m16n8k32, one warp per 16 x 8 output tile, fragments
-//      loaded straight from global memory (a simple tiling; wgmma and TMA
-//      are later work).
+//      :34-38): an int8 x int8 -> int32 product on the tensor cores by
+//      wgmma (m64n128k32, both operands in shared memory, 128-byte
+//      swizzled), one warpgroup a 64 x 128 tile of D, K in steps of 128
+//      bytes through two stages: A by TMA, B transposed to K-major by the
+//      threads (wgmma takes 8-bit operands K-major only). Bound: at the
+//      reference's 256^3 its bytes (64 KB of operands in, 256 KB out:
+//      0.117 us at 3.35 TB/s; its 33.6 M operations take 0.017 us at
+//      1,979 TOP/s). It cannot come near half of that at this shape: a
+//      launch, a TMA round trip and the first stage's loads from device
+//      memory each cost a microsecond or so, on 8 CTAs of 132 SMs. At
+//      large shapes the 64 x 128 tiles read A and B again from L2 for
+//      every tile (B 64 times over at 4096^3), far below the tensor
+//      cores' rate; larger tiles, multicast and a persistent grid are
+//      later work.
 //   P3 vpu_probe_kernel<variant> and vpu_fetch_kernel<bf16> replace
 //      bench/vpu_probe.py:41 (bodies :71-220): a loop of `iters` steps
 //      over a (8, 128) i32 carry in [0, 256). The eight CUDA-core bodies
@@ -49,6 +59,7 @@
 
 #include "common.cuh"
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 namespace {
@@ -156,40 +167,271 @@ __device__ __forceinline__ uint32_t pack4(int8_t e0, int8_t e1, int8_t e2,
 }
 
 // ---------------------------------------------------------------------------
-// P2: D (M x N, s32) = A (M x K, s8, row-major) . B (K x N, s8, row-major);
-// M % 16 == N % 8 == K % 32 == 0. One warp (one block) per 16 x 8 tile of D.
-// The m16n8k32 fragments (lane = 4 g + q):
-//   A: a0 (row g, cols 4q..4q+3), a1 (row g+8, the same cols), a2 and a3
-//      the same rows at cols 16 + 4q..;
-//   B: b0 (rows 4q..4q+3, col g), b1 (rows 16 + 4q.., col g);
-//   D: d0, d1 (row g, cols 2q, 2q+1), d2, d3 (row g+8, the same cols).
+// P2: D (M x N, s32) = A (M x K, s8, row-major) . B (K x N, s8, row-major)
+// on wgmma; M % 16 == N % 8 == K % 32 == 0, A 16-byte and B 8-byte
+// aligned. One warpgroup (128 threads) a CTA computes a 64 x 128 tile of
+// D with wgmma m64n128k32 .s32.s8.s8, both operands in shared memory,
+// K-major and 128-byte swizzled: byte (row r, k) of a tile of 128-byte
+// rows lies at r * 128 + ((k / 16) ^ (r % 8)) * 16 + k % 16, its 8-row
+// groups 1,024 bytes apart. K runs in steps of 128 bytes (one swizzle
+// atom) through a ring of two stages:
+//   - A's tile arrives by TMA (its tensor map made on the host per call),
+//     completing on the stage's mbarrier; rows past M and bytes past K
+//     come back zero;
+//   - wgmma takes 8-bit operands K-major only, and B arrives N-major, so
+//     the threads transpose it: thread (kg, cn) = (tid % 16, tid / 16)
+//     loads rows 8 kg .. 8 kg + 7 of columns 16 cn .. 16 cn + 15 (16-byte
+//     loads where N % 16 == 0 and B is 16-byte aligned, else 8-byte;
+//     each load instruction of a warp reads 16 rows of 32 contiguous
+//     bytes), transposes the 8 x 16 bytes in registers (byte_perm) and
+//     stores 16 K-runs of 8 bytes (the 16 lanes of one cn fill every bank
+//     of a 128-byte row once), writing zeros past K and N, then fences
+//     the generic proxy's stores against wgmma's reads;
+//   - B's next tile waits in registers (the first two tiles' loads are
+//     issued together) and is stored while this step's wgmma group runs.
+// The epilogue maps the accumulator fragment (thread t of warp w = t / 32,
+// lane l: d[4 c + e] is row 16 w + l / 4 + 8 (e / 2), column 8 c +
+// 2 (l % 4) + e % 2) to D, masked past M and N.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32)
-    i8_matmul_kernel(const int8_t* __restrict__ A,
-                     const int8_t* __restrict__ B, int32_t* __restrict__ D,
-                     int N, int K) {
-  const int lane = threadIdx.x, g = lane >> 2, q = lane & 3;
-  const int m0 = (blockIdx.x / (N / 8)) * 16, n0 = (blockIdx.x % (N / 8)) * 8;
-  int32_t d[4] = {0, 0, 0, 0};
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    uint32_t a[4];
-    const int8_t* ar = A + (int64_t)(m0 + g) * K + k0 + 4 * q;
-    a[0] = *reinterpret_cast<const uint32_t*>(ar);
-    a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * K);
-    a[2] = *reinterpret_cast<const uint32_t*>(ar + 16);
-    a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * K + 16);
-    const int8_t* bc = B + (int64_t)(k0 + 4 * q) * N + n0 + g;
-    const uint32_t b0 = pack4(bc[0], bc[N], bc[2 * N], bc[3 * N]);
-    bc += 16 * (int64_t)N;
-    const uint32_t b1 = pack4(bc[0], bc[N], bc[2 * N], bc[3 * N]);
-    mma_s8(d, a, b0, b1);
+constexpr int kMmM = 64;      // rows of D a CTA: one wgmma m64
+constexpr int kMmN = 128;     // columns of D a CTA: wgmma n128
+constexpr int kMmK = 128;     // K bytes a stage: one 128-byte swizzle atom
+constexpr int kMmStages = 2;
+constexpr int kMmATile = kMmM * kMmK;                 // 8 KB
+constexpr int kMmStage = kMmATile + kMmN * kMmK;      // + B's 16 KB
+// the stages, 1,024-byte aligned by hand, and their mbarriers
+constexpr int kMmSmem = kMmStages * kMmStage + 1024 + 8 * kMmStages;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The wgmma descriptor of a K-major, 128-byte swizzled tile at `addr`
+// (1,024-byte aligned): start address >> 4, leading offset 1 (unused for
+// this layout), stride 1,024 bytes between 8-row groups, layout 1
+// (128-byte swizzle). Adding 2 advances the start by 32 bytes of K.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | uint64_t(1) << 16 |
+         uint64_t(1024 >> 4) << 32 | uint64_t(1) << 62;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// TMA: the box at (c0, c1) of the tensor map to shared memory, completing
+// on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(bar) : "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// wgmma fences and waits (the asm below names them; the waits do not).
+__device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int32_t (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// Four rows of four bytes (x_r holds row r) -> four columns (c_b holds
+// byte b of each row, row 0 in the low byte).
+__device__ __forceinline__ void transpose4x4(uint32_t x0, uint32_t x1,
+                                             uint32_t x2, uint32_t x3,
+                                             uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(x0, x1, 0x5140);
+  const uint32_t t1 = __byte_perm(x2, x3, 0x5140);
+  const uint32_t t2 = __byte_perm(x0, x1, 0x7362);
+  const uint32_t t3 = __byte_perm(x2, x3, 0x7362);
+  c[0] = __byte_perm(t0, t1, 0x5410);
+  c[1] = __byte_perm(t0, t1, 0x7632);
+  c[2] = __byte_perm(t2, t3, 0x5410);
+  c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// This thread's 8 x 16 bytes of B's tile at K step kt into registers:
+// rows 8 kg .. 8 kg + 7, columns 16 cn .. 16 cn + 15, zero past K and N.
+// The loads are only issued here; their first use is store_b_tile's.
+__device__ __forceinline__ void fetch_b_tile(const int8_t* __restrict__ B,
+                                             uint32_t (&w)[8][4], int N,
+                                             int K, int n0, int kt,
+                                             bool vec16) {
+  const int kg = threadIdx.x & 15, cn = threadIdx.x >> 4;
+  const int n = n0 + 16 * cn;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int k = kt * kMmK + 8 * kg + j;
+    const int8_t* src = B + (int64_t)k * N + n;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (k < K && n < N) {
+      if (vec16) {
+        v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const uint2 lo = *reinterpret_cast<const uint2*>(src);
+        const uint2 hi = n + 8 < N ? *reinterpret_cast<const uint2*>(src + 8)
+                                   : make_uint2(0, 0);
+        v = make_uint4(lo.x, lo.y, hi.x, hi.y);
+      }
+    }
+    w[j][0] = v.x;
+    w[j][1] = v.y;
+    w[j][2] = v.z;
+    w[j][3] = v.w;
   }
-  int32_t* dr = D + (int64_t)(m0 + g) * N + n0 + 2 * q;
-  dr[0] = d[0];
-  dr[1] = d[1];
-  dr[8 * N] = d[2];
-  dr[8 * N + 1] = d[3];
+}
+
+// The fetched 8 x 16 bytes, transposed (byte_perm) into the stage's B
+// image (n rows of 128 K bytes, swizzled) as 16 runs of 8 K bytes.
+__device__ __forceinline__ void store_b_tile(unsigned char* bt,
+                                             const uint32_t (&w)[8][4]) {
+  const int kg = threadIdx.x & 15, cn = threadIdx.x >> 4;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t lo[4], hi[4];
+    transpose4x4(w[0][c], w[1][c], w[2][c], w[3][c], lo);
+    transpose4x4(w[4][c], w[5][c], w[6][c], w[7][c], hi);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int nl = 16 * cn + 4 * c + b;
+      const int off =
+          nl * kMmK + (((kg >> 1) ^ (nl & 7)) << 4) + ((kg & 1) << 3);
+      *reinterpret_cast<uint2*>(bt + off) = make_uint2(lo[b], hi[b]);
+    }
+  }
+  // the generic proxy's stores, before wgmma (the async proxy) reads them
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A's 64 x 128-byte box at K step kt into its stage, by TMA (one thread).
+__device__ __forceinline__ void load_a_tile(const CUtensorMap* map,
+                                            unsigned char* smem,
+                                            uint64_t* bars, int kt, int m0) {
+  const int s = kt % kMmStages;
+  const uint32_t bar = smem_u32(&bars[s]);
+  mbar_expect_tx(bar, kMmATile);
+  tma_load_2d(smem_u32(smem + s * kMmStage), map, kt * kMmK, m0, bar);
+}
+
+__global__ void __launch_bounds__(128)
+    i8_matmul_kernel(const __grid_constant__ CUtensorMap a_map,
+                     const int8_t* __restrict__ B, int32_t* __restrict__ D,
+                     int M, int N, int K, int vec16) {
+  extern __shared__ unsigned char mm_smem_raw[];
+  unsigned char* smem =
+      mm_smem_raw + ((1024 - (smem_u32(mm_smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kMmStages * kMmStage);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kMmM, n0 = blockIdx.y * kMmN;
+  const int k_tiles = (K + kMmK - 1) / kMmK;
+  if (tid == 0) {
+    for (int s = 0; s < kMmStages; ++s) mbar_init(smem_u32(&bars[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // B's tile for the next K step waits in registers while this step's
+  // wgmma group runs; the first two tiles' loads are issued together
+  uint32_t w[8][4], w0[8][4];
+  if (tid == 0) load_a_tile(&a_map, smem, bars, 0, m0);
+  fetch_b_tile(B, w0, N, K, n0, 0, vec16);
+  if (k_tiles > 1) fetch_b_tile(B, w, N, K, n0, 1, vec16);
+  store_b_tile(smem + kMmATile, w0);
+  int32_t d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % kMmStages;
+    // B's tile of this stage is stored and fenced in every thread, and
+    // the last step's wait freed the other stage
+    __syncthreads();
+    if (tid == 0 && kt + 1 < k_tiles)
+      load_a_tile(&a_map, smem, bars, kt + 1, m0);
+    mbar_wait(smem_u32(&bars[s]), (kt / kMmStages) & 1);
+    const uint32_t a_addr = smem_u32(smem + s * kMmStage);
+    const uint64_t da = sw128_desc(a_addr);
+    const uint64_t db = sw128_desc(a_addr + kMmATile);
+    fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < kMmK / 32; ++ks)
+      wgmma_s8_m64n128k32(d, da + 2 * ks, db + 2 * ks);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    fence_acc(d);
+    if (kt + 1 < k_tiles) {
+      store_b_tile(smem + (s ^ 1) * kMmStage + kMmATile, w);
+      if (kt + 2 < k_tiles) fetch_b_tile(B, w, N, K, n0, kt + 2, vec16);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(d);
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row = m0 + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < kMmN / 8; ++c) {
+    const int col = n0 + 8 * c + 2 * (lane & 3);
+    if (col < N) {
+      if (row < M)
+        *reinterpret_cast<int2*>(D + (int64_t)row * N + col) =
+            make_int2(d[4 * c], d[4 * c + 1]);
+      if (row + 8 < M)
+        *reinterpret_cast<int2*>(D + (int64_t)(row + 8) * N + col) =
+            make_int2(d[4 * c + 2], d[4 * c + 3]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -490,12 +732,75 @@ extern "C" int mhc_loop_calib(const uint32_t* x, uint32_t* out, int variant,
   return (int)cudaErrorInvalidValue;
 }
 
-// P2: D (M, N) s32 = A (M, K) s8 . B (K, N) s8, all row-major.
+// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime
+// (the library links no libcuda); null where it is missing.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+constexpr int kMaxDevices = 64;
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// P2: D (M, N) s32 = A (M, K) s8 . B (K, N) s8, all row-major;
+// M % 16 == N % 8 == K % 32 == 0, A 16-byte and B 8-byte aligned.
 extern "C" int mhc_i8_matmul(const int8_t* A, const int8_t* B, int32_t* D,
                              int M, int N, int K, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || M % 16 || N % 8 || K % 32)
+  if (M <= 0 || N <= 0 || K <= 0 || M % 16 || N % 8 || K % 32 ||
+      reinterpret_cast<uintptr_t>(A) % 16 ||
+      reinterpret_cast<uintptr_t>(B) % 8 ||
+      (N + kMmN - 1) / kMmN > 65535)
     return (int)cudaErrorInvalidValue;
-  i8_matmul_kernel<<<(M / 16) * (N / 8), 32, 0, stream>>>(A, B, D, N, K);
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  // A as a (M rows, K bytes) tensor, boxes of 64 rows x 128 bytes, 128-byte
+  // swizzled as wgmma reads them; out-of-bounds bytes read as zero
+  CUtensorMap a_map;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {kMmK, kMmM};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  if (encode(&a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(A),
+             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  // the shared-memory limit is set once a device (a racing second set is
+  // harmless)
+  static bool smem_set[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[device]) {
+    e = cudaFuncSetAttribute(i8_matmul_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMmSmem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[device] = true;
+  }
+  const dim3 grid((M + kMmM - 1) / kMmM, (N + kMmN - 1) / kMmN);
+  const int vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  i8_matmul_kernel<<<grid, 128, kMmSmem, stream>>>(a_map, B, D, M, N, K,
+                                                   vec16);
   return (int)cudaGetLastError();
 }
 

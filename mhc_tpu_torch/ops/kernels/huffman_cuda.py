@@ -6,9 +6,9 @@ replaces mhc_tpu/ops/huffman.py::code_lengths with rescale_counts_jax (an
 XLA stage on the TPU), and computes what the host builder does
 (`ops/huffman.py`: rescale_counts -> code_lengths_np), with the rescale
 taken on the int64 row total, so that device and host builds agree for
-every input. Its time is the merge's serial chain of at most 510
-dependent shared-memory picks a row, every row in flight at once; the
-source note has the design.
+every input. Its time is the merge's serial chain of at most 255 steps
+of two picks a row on one thread, both queue heads in registers, every
+row in flight at once; the source note has the design.
 """
 
 from __future__ import annotations

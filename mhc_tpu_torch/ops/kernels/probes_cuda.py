@@ -98,8 +98,10 @@ def loop_calib(name: str, x: torch.Tensor, variant: str, n_ops: int,
 
 
 def i8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """P2: (M, K) int8 . (K, N) int8 -> (M, N) int32 on mma.sync;
-    M % 16 == N % 8 == K % 32 == 0."""
+    """P2: (M, K) int8 . (K, N) int8 -> (M, N) int32 on wgmma;
+    M % 16 == N % 8 == K % 32 == 0. A is read by TMA, which needs its
+    base 16-byte aligned, and B by 8-byte loads: a view that is not
+    aligned so is refused, not copied."""
     M, K = a.shape
     N = b.shape[1]
     _require(a, torch.int8, (M, K), "a")
@@ -108,6 +110,8 @@ def i8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("a and b must lie on one device")
     if M % 16 or N % 8 or K % 32 or 0 in (M, N, K):
         raise ValueError("i8_matmul needs M % 16 == N % 8 == K % 32 == 0")
+    if a.data_ptr() % 16 or b.data_ptr() % 8:
+        raise ValueError("i8_matmul needs a 16-byte and b 8-byte aligned")
     lib, fn = _build.load("probes", "mhc_i8_matmul", _MATMUL_ARGS)
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
@@ -145,23 +149,26 @@ def vpu_probe(name: str, x: torch.Tensor, steps: int,
 
 
 # SASS each checked kernel must hold, by (mangled) function name: the
-# fetch cores and P2 their tensor-core products, `scratch` its shared
-# memory round trips. Template arguments: vpu_fetch_kernel<bf16 = 0 | 1>,
-# loop_calib_kernel<1 (scratch), 8>; loop_calib_kernel<4 (dep), 512>,
-# the one-op chain, is read for its instructions per op.
+# fetch cores their tensor-core products, P2 its wgmma (IGMMA), `scratch`
+# its shared memory round trips. Template arguments: vpu_fetch_kernel<bf16
+# = 0 | 1>, loop_calib_kernel<1 (scratch), 8>; loop_calib_kernel<4 (dep),
+# 512>, the one-op chain, is read for its instructions per op.
 SASS_REQUIRED = {
     "vpu_fetch_kernelILb0E": ("IMMA",),
     "vpu_fetch_kernelILb1E": ("HMMA",),
-    "i8_matmul_kernel": ("IMMA",),
+    "i8_matmul_kernel": ("IGMMA",),
     "loop_calib_kernelILi1ELi8E": ("LDS", "STS"),
     "loop_calib_kernelILi4ELi512E": (),
 }
+# ... and what it must not: P2 has no mma.sync product left
+SASS_FORBIDDEN = {"i8_matmul_kernel": ("IMMA",)}
 
 
 def sass_counts() -> dict:
     """{checked kernel: {opcode: count}}, read from `cuobjdump -sass` of
-    the built libprobes.so; raises where a checked kernel is missing or
-    lacks what SASS_REQUIRED asks of it."""
+    the built libprobes.so; raises where a checked kernel is missing,
+    lacks what SASS_REQUIRED asks of it or holds what SASS_FORBIDDEN
+    does not allow."""
     so = _build.build("probes")
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", so], capture_output=True,
@@ -183,4 +190,9 @@ def sass_counts() -> dict:
         if key not in counts or missing:
             raise AssertionError(f"libprobes.so: {key} has no {missing} in "
                                  f"its SASS ({dict(counts.get(key, {}))})")
+    for key, ops in SASS_FORBIDDEN.items():
+        found = [o for o in ops if counts[key].get(o)]
+        if found:
+            raise AssertionError(f"libprobes.so: {key} holds {found} in its "
+                                 f"SASS ({dict(counts[key])})")
     return {k: dict(v) for k, v in counts.items()}

@@ -409,13 +409,26 @@ def _k11_rows(kind: str) -> np.ndarray:
         "over_2_31": np.stack([big, big << 8, big << 30]),
         "random": (rng.integers(0, 10 ** 6, (300, 256))
                    * (rng.random((300, 256)) < rng.random((300, 1)))),
+        # 256 seeded rows of 2..256 symbols, weights over 1..7 decades
+        "random_256": np.concatenate([
+            r.integers(1, 10 ** int(r.integers(1, 8)), (64, 256))
+            * (r.random((64, 256)) < r.random((64, 1)))
+            for r in map(np.random.default_rng, range(10, 14))]),
+        "three_symbols": np.stack([_three(5, 5, 5), _three(1, 2, 3),
+                                   _three(1, 1, 1 << 20)]),
     }[kind]
+
+
+def _three(*weights) -> np.ndarray:
+    c = np.zeros(256, np.int64)
+    c[[3, 100, 255]] = weights
+    return c
 
 
 @pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
 @pytest.mark.parametrize("kind", ["all_zero", "one_symbol", "two_symbols",
-                                  "all_equal", "fibonacci", "over_2_31",
-                                  "random"])
+                                  "three_symbols", "all_equal", "fibonacci",
+                                  "over_2_31", "random", "random_256"])
 def test_k11_equals_plain_version_and_host_build(dev, kind, dtype):
     counts = _k11_rows(kind)
     if dtype == torch.int32:
@@ -511,13 +524,57 @@ def test_i8_matmul_kernel_equals_plain_library_and_exact(dev):
                                                                         b2))
 
 
+def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch._int_mm on operands zero-padded to multiples of 128 (its
+    cuBLASLt call refuses some small shapes, (48, 96, 40) among them),
+    cut back to (M, N): the same product."""
+    (M, K), N = a.shape, b.shape[1]
+    Mp, Kp, Np = (-(-x // 128) * 128 for x in (M, K, N))
+    ap = torch.zeros((Mp, Kp), dtype=a.dtype, device=a.device)
+    bp = torch.zeros((Kp, Np), dtype=b.dtype, device=b.device)
+    ap[:M, :K], bp[:K, :N] = a, b
+    return torch._int_mm(ap, bp)[:M, :N]
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 32, 8), (48, 96, 40),
+                                   (272, 288, 264), (256, 256, 256)])
+def test_i8_matmul_wgmma_shapes_equal_plain_library_and_int64(dev, M, K, N):
+    """Tiles cut by M, N and K (K % 128 != 0, N % 16 != 0: the 8-byte B
+    loads), one launch each."""
+    rng = np.random.default_rng(M * K * N)
+    a_np = rng.integers(-128, 128, (M, K), np.int8)
+    b_np = rng.integers(-128, 128, (K, N), np.int8)
+    a, b = torch.from_numpy(a_np).to(dev), torch.from_numpy(b_np).to(dev)
+    _build.LAUNCHES.clear()
+    got = probes.i8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mosaic_probe/i8_matmul"] == 1
+    assert torch.equal(got, probes.i8_matmul_plain(a, b))
+    assert torch.equal(got, _int_mm(a, b))
+    assert (got.cpu().numpy()
+            == a_np.astype(np.int64) @ b_np.astype(np.int64)).all()
+
+
+def test_i8_matmul_refuses_unaligned_views(dev):
+    flat = torch.zeros(64 * 64 + 16, dtype=torch.int8, device=dev)
+    ok = flat[:64 * 64].view(64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        probes_cuda.i8_matmul(flat[8:8 + 64 * 64].view(64, 64), ok)
+    with pytest.raises(ValueError, match="aligned"):
+        probes_cuda.i8_matmul(ok, flat[4:4 + 64 * 64].view(64, 64))
+    assert torch.equal(probes_cuda.i8_matmul(ok, flat[8:8 + 64 * 64]
+                                             .view(64, 64)),
+                       torch.zeros((64, 64), dtype=torch.int32, device=dev))
+
+
 def test_probe_sass_has_tensor_core_products_and_shared_memory():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     counts = probes_cuda.sass_counts()
     assert counts["vpu_fetch_kernelILb0E"]["IMMA"] > 0
     assert counts["vpu_fetch_kernelILb1E"]["HMMA"] > 0
-    assert counts["i8_matmul_kernel"]["IMMA"] > 0
+    assert counts["i8_matmul_kernel"]["IGMMA"] > 0
+    assert counts["i8_matmul_kernel"].get("IMMA", 0) == 0
     assert counts["loop_calib_kernelILi1ELi8E"]["LDS"] > 0
     assert counts["loop_calib_kernelILi1ELi8E"]["STS"] > 0
 

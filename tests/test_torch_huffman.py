@@ -106,6 +106,176 @@ def test_plain_equals_jax_and_numpy(case):
         huffman.code_lengths(c32[0]).numpy(), got[0])
 
 
+# ---------------------------------------------------------------------------
+# K11's merge as csrc/huffman.cu `merge` runs it, transcribed: both queue
+# heads in registers, the entries behind them loaded a step ahead
+# ---------------------------------------------------------------------------
+
+_INF = 1 << 30
+
+
+def _merge_straight(leaf_w: list, m: int):
+    """The two-queue merge as the reference writes it (code_lengths_np):
+    every pick reads both heads from memory. (leaf_parent, int_parent,
+    int_w) over m leaves and m - 1 internal nodes (the root, node m - 2,
+    has no parent)."""
+    int_w, lp, ip = [None] * (m - 1), [-1] * m, [-1] * (m - 2)
+    i = j = 0
+    for t in range(m - 1):
+        total = 0
+        for _ in range(2):
+            lw = leaf_w[i] if i < m else _INF
+            iw = int_w[j] if j < t else _INF
+            if lw <= iw:
+                lp[i], i, total = t, i + 1, total + lw
+            else:
+                ip[j], j, total = t, j + 1, total + iw
+        int_w[t] = total
+    return lp, ip, int_w
+
+
+def _parent_step(leaves_by: list, steps: int, n: int, leaf: bool) -> int:
+    """One of `parent_steps`' two searches: the first step by which more
+    than n leaves (or nodes) were picked, as a branchless binary search
+    over spans 128, 64, ..., 1."""
+    pos = 0
+    for span in (128, 64, 32, 16, 8, 4, 2, 1):
+        c = pos + span - 1
+        got = (leaves_by[c] if leaf else 2 * (c + 1) - leaves_by[c]
+               ) if c < steps else None
+        if got is not None and got <= n:
+            pos += span
+    return pos
+
+
+def _merge_windowed(leaf_w: list, m: int):
+    """`merge`, step for step: l0..l3 and a0..a3 are its registers over
+    leaf_w (kInf from m on, padded by 4) and int_w (kInf until written); a
+    step's picks read l0, l1, a0 and a1 only; the windows shift by what
+    each queue gave (p2-shifted, then p1-shifted), the head of the node
+    window becomes min(entry, sum), the next one too unless node t is
+    alone (kInf), and l2, l3, a2, a3 are loaded at the end of the step. It
+    stores int_w[t] and the leaves picked by step t; the parents follow by
+    `parent_steps`. Every load is recorded in issue order with the step
+    that issued it."""
+    lw_mem = list(leaf_w) + [_INF] * (256 - m + 4)
+    iw_mem = [_INF] * 260
+    leaves_by = [0] * 256
+    loads = []
+
+    def leaf(x, t):
+        loads.append(("leaf", x, t))
+        return lw_mem[x]
+
+    def node(x, t):
+        loads.append(("int", x, t))
+        return iw_mem[x]
+
+    lq = [leaf(x, -1) for x in range(4)]
+    aq = [_INF] * 4
+    i = j = pending = 0
+    for t in range(m - 1):
+        l0, l1, a0, a1 = lq[0], lq[1], aq[0], aq[1]
+        p1 = l0 <= a0
+        lw, iw = (l1, a0) if p1 else (l0, a1)
+        p2 = lw <= iw
+        total = min(l0, a0) + min(lw, iw)
+        leaves = p1 + p2
+        i += leaves
+        iw_mem[t], leaves_by[t] = total, i
+        c = [lq[k + p2] for k in range(3)]
+        d = [aq[k + (not p2)] for k in range(3)]
+        j, pending = j + 2 - leaves, pending + leaves - 1
+        lq = [c[k + p1] for k in range(2)] + [leaf(i + 2, t), leaf(i + 3, t)]
+        aq = [min(d[not p1], total),
+              min(d[1 + (not p1)], total) if pending > 1 else _INF,
+              node(j + 2, t), node(j + 3, t)]
+    lp = [_parent_step(leaves_by, m - 1, x, True) for x in range(m)]
+    ip = [_parent_step(leaves_by, m - 1, y, False) for y in range(m - 2)]
+    return lp, ip, iw_mem[:m - 1], loads
+
+
+def _lengths_from_merge(w: np.ndarray, merge) -> tuple:
+    """(lengths, parents) of one row of rescaled weights through `merge`:
+    the leaves in (weight, symbol) order, depths below the root (internal
+    node m - 2), the reference's 15-bit repair; m <= 1 rows take their
+    special results."""
+    present = w > 0
+    m = int(present.sum())
+    if m <= 1:
+        return present.astype(np.uint8), None
+    order = np.lexsort((np.arange(256), np.where(present, w, _INF)))
+    lp, ip, int_w = merge([int(x) for x in w[order][:m]], m)[:3]
+    depth = [0] * (m - 1)
+    for t in range(m - 3, -1, -1):
+        depth[t] = depth[ip[t]] + 1
+    lengths = np.zeros(256, np.int64)
+    lengths[order[:m]] = [depth[p] + 1 for p in lp]
+    return jax_huffman.limit_lengths_np(lengths), (lp, ip, int_w)
+
+
+MERGE_CASES = {
+    "markov_corpus": lambda: _corpus_counts(english_like(256 << 10, 3),
+                                            "markov"),
+    "order0_corpus": lambda: _corpus_counts(mixed_binary(256 << 10, 3),
+                                            "huffman"),
+    "fibonacci_repair": lambda: np.stack([
+        _fib(), np.random.default_rng(1).permutation(_fib()), _fib(40),
+        _fib(24), np.where(np.arange(256) % 3 == 0, _fib(), 0)]),
+    "all_equal": lambda: np.stack([
+        np.full(256, 5, np.int64), np.full(256, 1, np.int64),
+        np.where(np.arange(256) < 100, 7, 0), np.where(
+            np.arange(256) < 4, 1 << 20, 0)]),
+    "two_and_three_symbols": lambda: np.stack([
+        _one((1, 7), (200, 1)), _one((0, 1), (255, 1)),
+        _one((0, 1), (255, 1), (128, 1)), _one((3, 5), (9, 5), (4, 10)),
+        _one((3, 1), (9, 2), (4, 1 << 20))]),
+    "random_50": lambda: np.stack([
+        rng.integers(1, 10 ** int(rng.integers(1, 8)), 256)
+        * (rng.random(256) < rng.random())
+        for rng in map(np.random.default_rng, range(100, 150))]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_windowed_merge_equals_straight_merge_and_jax(case):
+    counts = MERGE_CASES[case]()
+    jax_rows = _jax_lengths(counts)
+    for row, ref in zip(counts, jax_rows, strict=True):
+        w = jax_huffman.rescale_counts(row).astype(np.int64)
+        straight, parents = _lengths_from_merge(w, _merge_straight)
+        windowed, wparents = _lengths_from_merge(w, _merge_windowed)
+        assert wparents == parents
+        np.testing.assert_array_equal(windowed, straight)
+        np.testing.assert_array_equal(windowed, ref)
+        np.testing.assert_array_equal(windowed,
+                                      jax_huffman.code_lengths_np(row))
+    if case == "fibonacci_repair":
+        assert (jax_rows.max(axis=1) == 15).all()
+
+
+def test_windowed_merge_loads_a_step_ahead_and_inside_its_queues():
+    """Four loads a step, issued after its picks, inside the padded
+    arrays, two places past the heads: the leaves stream in order, never
+    stepping back more than one entry (a step that takes no leaf loads
+    its two again); a node load reads a node formed by then (node t
+    included, stored just before) or an entry still kInf. No head (l0,
+    l1, a0, a1) is loaded: each comes from a register filled a step or
+    more before."""
+    w = [int(x) for x in sorted(np.random.default_rng(5).integers(
+        1, 1000, 200))]
+    m = len(w)
+    lp, ip, int_w, loads = _merge_windowed(w, m)
+    assert len(loads) == 4 + 4 * (m - 1)
+    leaves = [x for kind, x, t in loads if kind == "leaf" and t >= 0]
+    assert leaves[:2] in ([2, 3], [3, 4], [4, 5]) and max(leaves) <= 259
+    assert all(b >= a - 1 for a, b in zip(leaves, leaves[1:]))
+    nodes = [(x, t) for kind, x, t in loads if kind == "int"]
+    assert min(x for x, _ in nodes) >= 2 and max(x for x, _ in nodes) <= 259
+    assert any(x == t for x, t in nodes) and any(x < t for x, t in nodes)
+    assert (lp, ip, int_w) == _merge_straight(w, m)
+
+
 @pytest.mark.parametrize("shift", [0, 8, 20, 30])
 def test_plain_equals_numpy_past_int32_totals(shift):
     """Row totals of 2**31 and beyond (int64 counts, as the sharded

@@ -344,6 +344,141 @@ def test_mosaic_probe_entry_point_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# P2's kernel (csrc/probes.cu `i8_matmul_kernel`): its index maps in numpy
+# ---------------------------------------------------------------------------
+
+MM_M, MM_N, MM_K = 64, 128, 128     # kMmM, kMmN, kMmK
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm: result byte i is byte (s >> 4 i) & 7 of the
+    eight bytes x (0-3), y (4-7)."""
+    b = (x | y << 32).to_bytes(8, "little")
+    return int.from_bytes(bytes(b[(s >> 4 * i) & 7] for i in range(4)),
+                          "little")
+
+
+def _transpose4x4(x0, x1, x2, x3):
+    t0, t1 = _byte_perm(x0, x1, 0x5140), _byte_perm(x2, x3, 0x5140)
+    t2, t3 = _byte_perm(x0, x1, 0x7362), _byte_perm(x2, x3, 0x7362)
+    return [_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632),
+            _byte_perm(t2, t3, 0x5410), _byte_perm(t2, t3, 0x7632)]
+
+
+def _sw128_write(r: int, k: int) -> int:
+    """Where a K-major, 128-byte swizzled tile keeps byte (row r, K byte
+    k): TMA's layout for A, load_b_tile's for B."""
+    return r * MM_K + (((k // 16) ^ (r % 8)) << 4) + k % 16
+
+
+def _a_image(a: np.ndarray, m0: int, kt: int) -> np.ndarray:
+    """A's 64 x 128-byte TMA box at K step kt: zero past M and K."""
+    M, K = a.shape
+    img = np.zeros(MM_M * MM_K, np.uint8)
+    for r in range(MM_M):
+        for k in range(MM_K):
+            if m0 + r < M and kt * MM_K + k < K:
+                img[_sw128_write(r, k)] = a[m0 + r, kt * MM_K + k]
+    return img
+
+
+def _b_image(b: np.ndarray, n0: int, kt: int) -> np.ndarray:
+    """fetch_b_tile then store_b_tile, thread by thread: 8 rows x 16
+    columns loaded (16 bytes, or two 8-byte halves where N % 16 != 0;
+    zero past K and N), transposed by byte_perm, stored as 16 runs of 8 K
+    bytes. Every byte of the image must be written exactly once."""
+    K, N = b.shape
+    img = np.zeros(MM_N * MM_K, np.uint8)
+    writes = np.zeros(MM_N * MM_K, np.int32)
+    vec16 = N % 16 == 0
+    for tid in range(128):
+        kg, cn = tid & 15, tid >> 4
+        n = n0 + 16 * cn
+        w = np.zeros((8, 4), np.int64)
+        for j in range(8):
+            k = kt * MM_K + 8 * kg + j
+            row = np.zeros(16, np.uint8)
+            if k < K and n < N:
+                if vec16 or n + 8 < N:
+                    row[:] = b[k, n:n + 16].view(np.uint8)
+                else:
+                    row[:8] = b[k, n:n + 8].view(np.uint8)
+            w[j] = row.view("<u4")
+        for c in range(4):
+            lo = _transpose4x4(*(int(w[j, c]) for j in range(4)))
+            hi = _transpose4x4(*(int(w[j, c]) for j in range(4, 8)))
+            for bb in range(4):
+                nl = 16 * cn + 4 * c + bb
+                off = (nl * MM_K + (((kg >> 1) ^ (nl & 7)) << 4)
+                       + ((kg & 1) << 3))
+                img[off:off + 8] = np.frombuffer(
+                    (lo[bb] | hi[bb] << 32).to_bytes(8, "little"), np.uint8)
+                writes[off:off + 8] += 1
+    assert (writes == 1).all()
+    return img
+
+
+def _desc_read(img: np.ndarray, rows: int, ks: int) -> np.ndarray:
+    """The (rows, 32) operand a wgmma k-step reads through the descriptor
+    sw128_desc(base) + 2 ks: 8-row groups 1,024 bytes apart (SBO), rows
+    of 128 bytes, the start 32 ks bytes in, and the 128-byte swizzle on
+    the address (bits 4-6 ^= bits 7-9)."""
+    r = np.arange(rows)[:, None]
+    k = np.arange(32)[None, :]
+    addr = (r // 8) * 1024 + (r % 8) * 128 + 32 * ks + k
+    return img[addr ^ (((addr >> 7) & 7) << 4)].view(np.int8)
+
+
+def _i8_matmul_transcribed(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The kernel's grid, K steps, wgmma k-steps and epilogue over numpy
+    images; D's accumulator fragment mapped to (row, col) and masked past
+    M and N, every element of D stored exactly once."""
+    (M, K), N = a.shape, b.shape[1]
+    out = np.zeros((M, N), np.int64)
+    stores = np.zeros((M, N), np.int32)
+    for bx in range(-(-M // MM_M)):
+        for by in range(-(-N // MM_N)):
+            m0, n0 = bx * MM_M, by * MM_N
+            acc = np.zeros((MM_M, MM_N), np.int64)
+            for kt in range(-(-K // MM_K)):
+                ai, bi = _a_image(a, m0, kt), _b_image(b, n0, kt)
+                for ks in range(MM_K // 32):
+                    acc += (_desc_read(ai, MM_M, ks).astype(np.int64)
+                            @ _desc_read(bi, MM_N, ks).astype(np.int64).T)
+            for tid in range(128):
+                warp, lane = tid >> 5, tid & 31
+                for c in range(MM_N // 8):
+                    for e in range(4):
+                        row = 16 * warp + lane // 4 + 8 * (e // 2)
+                        col = 8 * c + 2 * (lane % 4) + e % 2
+                        if m0 + row < M and n0 + col < N:
+                            out[m0 + row, n0 + col] = acc[row, col]
+                            stores[m0 + row, n0 + col] += 1
+    assert (stores == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("M,K,N", [(256, 256, 256), (48, 96, 40),
+                                   (272, 288, 264)])
+def test_i8_matmul_index_maps_rebuild_the_product(M, K, N):
+    rng = np.random.default_rng(M + K + N)
+    a = rng.integers(-128, 128, (M, K), np.int8)
+    b = rng.integers(-128, 128, (K, N), np.int8)
+    exact = a.astype(np.int64) @ b.astype(np.int64)
+    np.testing.assert_array_equal(_i8_matmul_transcribed(a, b), exact)
+    np.testing.assert_array_equal(
+        probes.i8_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+        exact)
+
+
+def test_i8_matmul_transpose_selectors():
+    """byte_perm's selectors turn four rows of four bytes into columns."""
+    rows = [0x03020100, 0x13121110, 0x23222120, 0x33323130]
+    assert _transpose4x4(*rows) == [0x30201000, 0x31211101, 0x32221202,
+                                    0x33231303]
+
+
+# ---------------------------------------------------------------------------
 # The wrappers and the entry points without a card
 # ---------------------------------------------------------------------------
 
