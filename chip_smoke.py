@@ -83,8 +83,11 @@ calls, after building and checking every kernel those paths run:
      and a bad magic each raise ValueError, and so does the payload
      route's container with its length index rewritten so that unit 0
      claims the whole payload, before anything is allocated for it
-     (`torch.cuda.max_memory_allocated()` printed before and after);
-     then a clean decode works
+     (`torch.cuda.max_memory_allocated()` printed before and after), and
+     each crafted container of `crafted_containers` (over-full code
+     lengths in both modes, a negative unit length, an orig_len of 128 MB
+     with no payload, units under their fewest bytes, a payload size
+     past 2**63); then a clean decode works
   12. oracle: `make -C oracle` builds the single-core C++ oracle (a
      failed build fails the run), and each container is no larger than
      the oracle's (em for Markov, e0 for order-0)
@@ -116,10 +119,13 @@ calls, after building and checking every kernel those paths run:
      on cuda:0, the default on a card) and `--ranks 2 --backend gloo`
      (two ranks sharing cuda:0) exit 0
   18. probes: the calibration probes P1-P3 (csrc/probes.cu, built in
-     phase 2, whose SASS must hold IMMA / HMMA in the fetch cores, IGMMA
-     (wgmma) and no IMMA in P2, and LDS / STS in P1's scratch body:
-     counts on the `build` line): every body's kernel == its plain
-     version at 1 and 64 steps (tolerance 0), P2 also == torch._int_mm
+     phase 2, whose SASS must hold IGMMA / HGMMA (wgmma) and no IMMA /
+     HMMA in the fetch cores, IGMMA and no IMMA in P2, and LDS / STS in
+     P1's scratch body: counts on the `build` line): every body's kernel
+     == its plain version at 1 and 64 steps and at the reference's steps
+     (tolerance 0; the plain versions at the reference's steps computed
+     on the CPU by a worker process started after the build, `chip_smoke.py
+     --reference-plains OUT`), P2 also == torch._int_mm
      (the library column) == an int64 product, and once at 4096^3 ==
      torch._int_mm, timed beside it (not gated); each loop body timed
      (ms and device_ms) at the reference's steps, with
@@ -1281,13 +1287,141 @@ def claim_whole_payload(blob: bytes) -> bytes:
     return bad
 
 
+# Crafted containers whose header, tables and index would drive a decoder
+# past what the encoder can write (tests/test_torch_corrupt.py sends them
+# through every route on the CPU, phase_corrupt through api.decompress on
+# the card): each must raise ValueError, never abort the process nor size
+# an allocation by the claim.
+CRAFT_PREFIX = 300_001   # of make_corpus(1 << 19)
+CRAFT_UNIT = 4096
+
+
+def craft_source(mode: str) -> bytes:
+    """The clean container the crafted ones start from: the first
+    300,001 bytes of make_corpus(1 << 19) in `mode`, 64 KB blocks,
+    4 KB decode units, crc on, compressed on the CPU."""
+    from mhc_tpu_torch import api
+    from mhc_tpu_torch.utils.corpus import make_corpus
+    data = make_corpus(1 << 19)[:CRAFT_PREFIX]
+    return api.compress(data, mode=mode, block_size=1 << 16,
+                        decode_unit=CRAFT_UNIT, device="cpu")
+
+
+def overfull_code_lengths(blob: bytes) -> bytes:
+    """Every code length of the first table read set to 1, a Kraft sum of
+    8 (16 nibble lengths) or of 128 (256): the 16 nibble code lengths of
+    a Markov container's packed table section (bytes 56-63, after the
+    header and the 32-byte context bitmap), or the 128-byte order-0
+    table (bytes 24-151)."""
+    from mhc_tpu_torch import container
+    meta = container.parse_container(blob)
+    if meta.mode == container.MODE_MARKOV:
+        if not meta.flags & container.FLAG_PACKED_TABLES:
+            raise AssertionError("overfull_code_lengths: tables not packed")
+        start, end = 56, 64
+    else:
+        start, end = 24, 152
+    return blob[:start] + b"\x11" * (end - start) + blob[end:]
+
+
+def packed_index64(values) -> bytes:
+    """A plain packed unit index (base 0) of 64-bit residuals: each value
+    as its two's complement bits, so a reader summing bit << i in int64
+    reads it back, negative ones included."""
+    import struct
+    import numpy as np
+    v = np.asarray(values, np.int64).view(np.uint64)
+    bits = ((v[:, None] >> np.arange(64, dtype=np.uint64))
+            & np.uint64(1)).astype(np.uint8)
+    return (struct.pack("<HB", 0, 64)
+            + np.packbits(bits.reshape(-1), bitorder="little").tobytes())
+
+
+def with_index(blob: bytes, index: bytes, payload: bytes | None = None,
+               orig_len: int | None = None) -> bytes:
+    """A substream container with its unit index replaced by `index` (a
+    plain packed index), and optionally its payload (the crc trailer
+    kept) and `orig_len`."""
+    import struct
+    from mhc_tpu_torch import container
+    meta = container.parse_container(blob)
+    start = meta.payload_off - meta.index_bytes
+    head = bytearray(blob[:start])
+    head[6] = ((meta.flags | container.FLAG_PACKED_INDEX)
+               & ~(container.FLAG_ENTROPY_INDEX
+                   | container.FLAG_GROUPED_INDEX))
+    if orig_len is not None:
+        struct.pack_into("<Q", head, 8, orig_len)
+    if payload is None:
+        payload = blob[meta.payload_off:container.container_size(meta) - 4]
+    return bytes(head) + index + payload + blob[-4:]
+
+
+def negative_unit_length(blob: bytes) -> bytes:
+    """An aligned (Markov) container whose unit 0 reads -100 bytes and
+    unit 1 100 more than units 0 and 1 held together: the payload's size,
+    and so the parse, would stay as they were."""
+    from mhc_tpu_torch import container
+    meta = container.parse_container(blob)
+    words = meta.byte_lengths // 4
+    words[1] += words[0] + 25
+    words[0] = -25
+    return with_index(blob, packed_index64(words))
+
+
+def orig_len_claim(blob: bytes) -> bytes:
+    """Header and tables of `blob` with orig_len 2**27 (32,768 units of
+    4 KB), an index of base 0 and no residual bits, no payload, the crc
+    trailer: a decoder that sized its output by orig_len alone would
+    decode 128 MB."""
+    import struct
+    return with_index(blob, struct.pack("<HB", 0, 0), payload=b"",
+                      orig_len=1 << 27)
+
+
+def short_units(blob: bytes) -> bytes:
+    """orig_len_claim with a payload: every unit one word (4 bytes), under
+    the 512 bytes the fewest bits of a 4 KB unit take."""
+    import struct
+    return with_index(blob, struct.pack("<HB", 1, 0),
+                      payload=bytes(4 * ((1 << 27) // CRAFT_UNIT)),
+                      orig_len=1 << 27)
+
+
+def payload_size_overflow(blob: bytes) -> bytes:
+    """An aligned (Markov) container whose units 0 and 1 claim 2**60 words
+    each: 2**62 bytes each, a payload size past 2**63 that reads negative
+    in int64."""
+    from mhc_tpu_torch import container
+    words = container.parse_container(blob).byte_lengths // 4
+    words[:2] = 1 << 60
+    return with_index(blob, packed_index64(words))
+
+
+def crafted_containers() -> dict:
+    """name -> (crafted container, what its ValueError must say)."""
+    markov, order0 = craft_source("markov"), craft_source("huffman")
+    return {"overfull_code_lengths_markov": (
+                overfull_code_lengths(markov), "code lengths"),
+            "overfull_code_lengths_order0": (
+                overfull_code_lengths(order0), "code lengths"),
+            "negative_unit_length": (negative_unit_length(markov),
+                                     "unit length"),
+            "orig_len_claim": (orig_len_claim(markov), "truncated"),
+            "short_units": (short_units(markov), "unit length"),
+            "payload_size_overflow": (payload_size_overflow(markov),
+                                      "payload size")}
+
+
 def phase_corrupt(torch, blob: bytes, data: bytes, du64k_blob: bytes,
                   dev) -> None:
     """Damaged containers decoded on the card raise ValueError, with no
     CUDA error, and the card decodes cleanly afterwards. The payload
     route's container whose unit 0 claims the whole payload (1,600 rows
     of 20.9 M words, were its length believed) raises before anything is
-    allocated for it."""
+    allocated for it; so do the crafted containers (over-full code
+    lengths, a negative unit length, an orig_len the index cannot hold,
+    units shorter than their symbols, a payload size past 2**63)."""
     from mhc_tpu_torch import api, container
     meta = container.parse_container(blob)
     flipped = bytearray(blob)
@@ -1323,6 +1457,16 @@ def phase_corrupt(torch, blob: bytes, data: bytes, du64k_blob: bytes,
     if after - before > 1 << 20:
         raise AssertionError(f"corrupt unit_claims_payload: {after - before}"
                              " bytes were allocated before the error")
+    for name, (bad, want) in crafted_containers().items():
+        try:
+            api.decompress(bad, device=dev)
+        except ValueError as e:
+            if want not in str(e):
+                raise AssertionError(f"corrupt {name}: {e}") from e
+            seen[name] = str(e)
+        else:
+            raise AssertionError(f"corrupt {name}: decoded without error")
+    torch.cuda.synchronize()
     if api.decompress(blob, device=dev) != data:
         raise AssertionError("corrupt: the clean decode afterwards failed")
     emit("corrupt", errors=seen, clean_decode_after=True,
@@ -1766,16 +1910,66 @@ def i8_matmul_4096(torch, dev, row: dict) -> None:
         raise AssertionError("i8_matmul differs from torch._int_mm at 4096^3")
 
 
-def phase_probes(torch, dev, rows: dict) -> dict:
+def reference_plains(out_path: str) -> None:
+    """The worker of `chip_smoke.py --reference-plains OUT`: every P1 and
+    P3 body's plain version on the CPU at the reference's steps (P1
+    4,096, P3 1,024, its fetch cores 256), saved to OUT (npz, one array a
+    body, `/` written `__`). Started beside the first phases: the longest
+    chains take ~110 s of one core as step loops of tensor ops."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, REPO)
+    from mhc_tpu_torch.bench import probes
+    cpu = torch.device("cpu")
+    res = {}
+    for body in PROBE_BODIES["loop_calib"][1]:
+        variant, n_ops = {**probes.LOOP_BODIES, **probes.DEP_BODIES}[body]
+        res[f"loop_calib__{body}"] = probes.loop_calib_plain(
+            variant, n_ops, probes.loop_input(cpu), probes.LOOP_ITERS)
+    for body in PROBE_BODIES["vpu_probe"][1]:
+        res[f"vpu_probe__{body}"] = probes.vpu_probe_plain(
+            body, probes.vpu_input(cpu),
+            probes.vpu_steps(body, probes.VPU_ITERS),
+            probes.vpu_operand(body, cpu))
+    np.savez(out_path, **{k: v.numpy() for k, v in res.items()})
+
+
+def start_reference_plains(path: str):
+    """The `--reference-plains` worker in a process of its own."""
+    return start_group([sys.executable, os.path.abspath(__file__),
+                        "--reference-plains", path],
+                       stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                       text=True)
+
+
+def read_reference_plains(proc, path: str) -> dict:
+    """{body: plain output} of the worker, once it has ended."""
+    import numpy as np
+    try:
+        _, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        raise AssertionError("--reference-plains ran over 900 s") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"--reference-plains: exit {proc.returncode}:"
+                             f" {err[-3000:]}")
+    with np.load(path) as f:
+        return {k.replace("__", "/", 1): f[k] for k in f.files}
+
+
+def phase_probes(torch, dev, rows: dict, plains: dict) -> dict:
     """P1-P3: every body's kernel against its plain version on the card
     at 1 and 64 steps (tolerance 0; P2's product also against
     torch._int_mm, the library column, and an int64 product on the host);
-    each loop body timed at the reference's steps (loop_calib 4,096,
-    vpu_probe 1,024, its fetch cores 256), and its loop's clock64()
-    cycles at those steps and a sixteenth of them, which must grow by 4x
-    at least (no step folded or hoisted; the launch's fixed cost is not in
-    the cycles). Returns {body: {"steps", "chk"}} at the reference's
-    steps, for the entry points' check."""
+    each loop body at the reference's steps (loop_calib 4,096, vpu_probe
+    1,024, its fetch cores 256): its output equal (tolerance 0) to the
+    plain version's at those steps (`plains`, computed on the CPU by the
+    `--reference-plains` worker), timed per call over KERNEL_BATCH calls
+    as the kernel rows are, its device time not under its bound (a
+    share above 1.05 would mean work the bound counts was skipped), and
+    its loop's clock64() cycles at those steps and a sixteenth of them,
+    which must grow by 4x at least (no step folded or hoisted; the
+    launch's fixed cost is not in the cycles). Returns {body: {"steps",
+    "chk"}} at the reference's steps, for the entry points' check."""
     import numpy as np
     from mhc_tpu_torch.bench import probes
     full = {}
@@ -1829,9 +2023,16 @@ def phase_probes(torch, dev, rows: dict) -> dict:
                         bound_bytes=lambda out: nbytes(x, *out))
             steps = (probes.vpu_steps(body, iters) if probe == "vpu_probe"
                      else iters)
-            out, ms = min_ms(torch, lambda: run(body, x, steps), 3)
-            dev_ms = device_fields(torch, lambda: run(body, x, steps), 3, 1,
-                                   "device_ms")
+            out, ms = min_ms(torch, lambda: run(body, x, steps), 3,
+                             KERNEL_BATCH)
+            ref_err = int(np.abs(out.cpu().numpy().astype(np.int64)
+                                 - plains[name].astype(np.int64)).max())
+            if ref_err != 0:
+                raise AssertionError(
+                    f"{name} differs from its plain version at {steps} "
+                    f"steps (max abs err {ref_err}); tolerance is 0")
+            dev_ms = device_fields(torch, lambda: run(body, x, steps), 3,
+                                   KERNEL_BATCH, "device_ms")
             cycles = {}
             for n in (steps // 16, steps):
                 c = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -1840,6 +2041,8 @@ def phase_probes(torch, dev, rows: dict) -> dict:
             growth = cycles[steps] / max(cycles[steps // 16], 1)
             row = rows[name]
             row.update(probe_bound(name, steps))
+            row["on_inputs"][f"steps_{steps}"] = {
+                "max_abs_err": ref_err, "plain_on": "cpu"}
             row.update(ms=ms, **dev_ms, steps=steps,
                        plain_ms=row["on_inputs"]["steps_64"]["plain_ms"],
                        plain_steps=64, library_ms=None,
@@ -1849,10 +2052,17 @@ def phase_probes(torch, dev, rows: dict) -> dict:
                        cycles_growth_x16=growth)
             full[name] = {"steps": steps, "chk": int(out.long().sum())}
             emit("probe", kernel=name, steps=steps, ms=ms,
+                 max_abs_err_at_steps=ref_err,
                  device_ms=row["device_ms"], bound_ms=row["bound_ms"],
                  device_share_of_bound=row["device_share_of_bound"],
                  held_to=row["held_to"],
                  loop_cycles=row["loop_cycles"], cycles_growth_x16=growth)
+            share = row["device_share_of_bound"]
+            if share is not None and share > 1.05:
+                raise AssertionError(
+                    f"{name}: device time {row['device_ms']} ms is under "
+                    f"its bound {row['bound_ms']} ms (share {share:.3f}): "
+                    "the kernel skips work the bound counts")
             if growth < 4:
                 raise AssertionError(
                     f"{name}: the loop's cycles grew {growth:.2f}x from "
@@ -1894,20 +2104,15 @@ def phase_probe_entry_points(full: dict) -> dict:
     return results
 
 
-def main() -> int:
-    started = time.perf_counter()
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
-                         "this check runs only on a CUDA GPU")
-    sys.path.insert(0, REPO)
+def run_phases(torch, plains, plains_path: str, started: float) -> dict:
+    """Every phase after the build, on cuda:0; the `kernels` line's rows
+    (`plains`: the `--reference-plains` worker writing `plains_path`;
+    `started`: the run's start on the host clock)."""
     from mhc_tpu_torch.ops.kernels import _build
     from mhc_tpu_torch.utils.corpus import make_corpus
-    smi = phase_device(torch)
-    phase_build(("histogram", "encode", "decode", "huffman", "probes"))
     dev = torch.device("cuda:0")
-    data = make_corpus(CORPUS_BYTES)
     rows: dict = {}
+    data = make_corpus(CORPUS_BYTES)
     phase_k11_synthetic(torch, dev)
     phase_kernels_markov(torch, data, dev, rows)
     phase_kernels_payload_route(torch, data, dev, rows)
@@ -1948,7 +2153,8 @@ def main() -> int:
     phase_trace(torch, data, dev)
     phase_profile(torch, data, dev, time.perf_counter() - started)
     phase_dryrun()
-    entry = phase_probe_entry_points(phase_probes(torch, dev, rows))
+    entry = phase_probe_entry_points(phase_probes(
+        torch, dev, rows, read_reference_plains(plains, plains_path)))
     calib = entry["loop_calib"]
     emit("probe_findings", loop_fit=calib["fit"],
          int_dep_ns_per_op=calib["int_dep_ns_per_op"],
@@ -1971,6 +2177,25 @@ def main() -> int:
         row["launches"] = path_of.get(name, launches)[name]
     if set(rows) != set(KERNELS):
         raise AssertionError(f"kernels unchecked: {set(KERNELS) - set(rows)}")
+    return rows
+
+
+def main() -> int:
+    started = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this check runs only on a CUDA GPU")
+    sys.path.insert(0, REPO)
+    from mhc_tpu_torch.ops.kernels import _build
+    smi = phase_device(torch)
+    phase_build(("histogram", "encode", "decode", "huffman", "probes"))
+    plains_path = os.path.join(_build.BUILD_DIR, "probe_plains.npz")
+    plains = start_reference_plains(plains_path)
+    try:
+        rows = run_phases(torch, plains, plains_path, started)
+    finally:
+        stop_group(plains)
     print(smi, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1982,5 +2207,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_worker(sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--reference-plains"]:
+        reference_plains(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -330,7 +330,8 @@ def check_parsed(meta) -> tuple:
     if len(byte_lens) != -(-meta.orig_len // du):
         raise ValueError("mhc: corrupt container (unit count)")
     engine.check_unit_lengths(
-        byte_lens, du, bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD))
+        byte_lens, du, bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD),
+        meta.orig_len)
     starts = meta.payload_off + np.concatenate(
         [[0], np.cumsum(byte_lens)]).astype(np.int64)
     return du, byte_lens, starts

@@ -4,10 +4,13 @@ bench/loop_calib.py).
 
     python -m mhc_tpu_torch.bench.loop_calib [--device cuda:0 | cpu]
 
-Runs kernel P1 (csrc/probes.cu, one block of 1,024 threads, the loop
-inside one launch) over a (8, 128) u32 carry for 4,096 steps: a chain of
-n dependent (c + k+1) ^ (c >> 1) a step for n in 4, 32, 128, 512, a
-shared-memory round trip, a predicated store and a 64-deep masked sum.
+Runs kernel P1 (csrc/probes.cu, the loop inside one launch) over a
+(8, 128) u32 carry for 4,096 steps: a chain of n dependent (c + k+1) ^
+(c >> 1) a step for n in 4, 32, 128, 512, a shared-memory round trip, a
+predicated store and a 64-deep masked sum. The 1,024 carries run in
+one-warp blocks, a warp to an SM (the masked sum 8 lanes a carry), so
+that each chain runs at its ops' latency; the round trip alone runs one
+block of 1,024 threads, one SM's shared memory.
 Fits ns per step = a + b * n over the four chains (a: the step's own
 cost, b: the cost of one op), and times a one-op chain (c += c >> 1) at
 two depths for an integer op's dependent latency. Each body: one warm-up

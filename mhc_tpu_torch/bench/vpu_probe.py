@@ -4,14 +4,16 @@ tensor cores (P3, the counterpart of the reference's bench/vpu_probe.py).
 
     python -m mhc_tpu_torch.bench.vpu_probe [ITERS] [--device cuda:0 | cpu]
 
-Runs kernel P3 (csrc/probes.cu, one block, the loop inside one launch)
-over a (8, 128) int32 carry in [0, 256) for ITERS steps (default 1,024):
-a null loop; three one-hot builds (int32 compare with an int8 cast, bf16,
-a 16 x 16 int8 outer product), each with a 256-deep pick; four 256-deep
-picks from a table in shared memory (int32, int8 products summed in
-int32 or int8, float32) on the CUDA cores; and two fetch cores, ITERS // 4
-steps each, whose one-hot of the carry is multiplied by a (256, 316)
-int8 or bf16 plane on mma.sync, rows 0..15 summed. Each body: one
+Runs kernel P3 (csrc/probes.cu, the loop inside one launch, the 1,024
+carries spread over the card) over a (8, 128) int32 carry in [0, 256)
+for ITERS steps (default 1,024): a null loop (a thread a carry); three
+one-hot builds (int32 compare with an int8 cast, bf16, a 16 x 16 int8
+outer product), each with a 256-deep pick; four 256-deep picks from a
+table in shared memory (int32, int8 products summed in int32 or int8,
+float32) on the CUDA cores, a warp a carry, each lane 8 of the 256
+terms; and two fetch cores, ITERS // 4 steps each, whose one-hot of the
+carry is multiplied by a (256, 316) int8 or bf16 plane on wgmma, 8
+carries a CTA, rows 0..15 summed. Each body: one
 warm-up run, then the minimum of 3, each between CUDA events; `chk` is
 the sum of its (8, 128) result. One JSON line.
 """

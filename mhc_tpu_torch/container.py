@@ -221,6 +221,10 @@ def parse_tables(mode: int, raw: bytes, off: int, packed: bool = False):
                                    256 * npresent)
         if np.any(nib >= 16):
             raise ValueError("mhc: corrupt packed table section")
+        # the decoder reads zeros past the end: a cut stream must read as
+        # truncated, not as lengths (decompress_file reads on for that)
+        if len(raw) < off + used:
+            raise ValueError("mhc: truncated container (packed tables)")
         off += used
         lengths[present] = nib.reshape(npresent, 256)
         return lengths, off
@@ -441,10 +445,17 @@ def parse_container(blob: bytes, head_only: bool = False) -> ContainerMeta:
     off = _HEADER.size
     lengths, off = parse_tables(mode, blob, off,
                                 packed=bool(flags & FLAG_PACKED_TABLES))
+    # the lengths size the decode tables of every route, host and device
+    from .utils import native
+    native.check_code_lengths(lengths)
     idx_start = off
     if flags & FLAG_SUBSTREAMS:
         decode_unit = 1 << du_log2
         n_units = (orig_len + decode_unit - 1) // decode_unit
+        # every unit stores a byte at least: an index longer than the
+        # rest of the container is not read (nor allocated)
+        if not head_only and n_units > len(blob) - off:
+            raise ValueError("mhc: truncated container (unit index)")
         bit_lengths = np.zeros((0,), np.int64)
         if flags & FLAG_ENTROPY_INDEX:
             byte_lengths, off = unpack_index_entropy(blob, off, n_units)
@@ -476,7 +487,12 @@ def parse_container(blob: bytes, head_only: bool = False) -> ContainerMeta:
             byte_lengths = (bit_lengths + 7) // 8
         off += idx_bytes
     index_bytes = off - idx_start
+    # a packed index of wide residuals can read negative
+    if byte_lengths.size and int(byte_lengths.min()) < 0:
+        raise ValueError("mhc: corrupt container (unit length)")
     payload_len = int(byte_lengths.sum())
+    if payload_len < 0:
+        raise ValueError("mhc: corrupt container (payload size)")
     crc = None
     tail = off + payload_len
     if not head_only:

@@ -1,19 +1,26 @@
 // P1-P3: the calibration probes of bench/ as Hopper kernels. Each one
 // times a building block of the reference's kernel designs on this card,
 // and computes, bit for bit, the (8, 128) array its reference computes.
+// The reference's probe fills the vector unit of a TPU chip's one
+// TensorCore; its counterpart here is the whole card: the 1,024 carries
+// are independent chains, spread over the SMs.
 //
 //   P1 loop_calib_kernel<variant, n_ops> replaces bench/loop_calib.py:74
 //      (body `make`, :34-70): a loop of `iters` steps over a (8, 128) u32
-//      carry, one block of 1,024 threads, one thread per element, the
-//      loop inside the kernel. Bodies: `chain` (n dependent
+//      carry, the loop inside the kernel. Bodies: `chain` (n dependent
 //      (c + k+1) ^ (c >> 1) a step), `scratch` (n round trips through
 //      shared memory, volatile so that none is elided), `store` (the chain
 //      plus a predicated global store on odd steps), `wide` (n 64-deep
-//      masked sums of x, in registers; the sum is x itself, as `big` is x
-//      broadcast, :38), and `dep` (n dependent c += c >> 1, a one-op
-//      chain, one LEA.HI an op, run as 32 one-warp blocks: the
-//      calibration of an integer op's dependent latency, which the
-//      reference does not have).
+//      masked sums of x; the sum is x itself, as `big` is x broadcast,
+//      :38), and `dep` (n dependent c += c >> 1, a one-op chain, one
+//      LEA.HI an op: the calibration of an integer op's dependent
+//      latency, which the reference does not have). Every body but
+//      `scratch` runs one-warp blocks, a warp on an SM of its own, so
+//      that each op waits on the one before it and on nothing else: one
+//      thread a carry (32 blocks), `wide` eight lanes a carry (256
+//      blocks), each lane 8 of the 64 terms, combined by a shuffle tree.
+//      `scratch` keeps one block of 1,024 threads: what it times is one
+//      SM's shared-memory round trip.
 //   P2 i8_matmul_kernel replaces bench/mosaic_probe.py:44 (`i8_kernel`,
 //      :34-38): an int8 x int8 -> int32 product on the tensor cores by
 //      wgmma (m64n128k32, both operands in shared memory, 128-byte
@@ -31,36 +38,39 @@
 //      later work.
 //   P3 vpu_probe_kernel<variant> and vpu_fetch_kernel<bf16> replace
 //      bench/vpu_probe.py:41 (bodies :71-220): a loop of `iters` steps
-//      over a (8, 128) i32 carry in [0, 256). The eight CUDA-core bodies
-//      run one thread per element of the carry (1,024 threads): the null
-//      loop, three one-hot builds each with its 256-deep pick, and four
-//      256-deep picks from a (256, 8) table in shared memory (the
-//      reference's (256, 8, 128) table is that one broadcast over lanes,
-//      :145-147). The two fetch cores are a one-hot product on the tensor
-//      cores, as the reference's is on the MXU: each step builds the
-//      one-hot of the carry in shared memory (256 x 1,024, int8 or bf16,
-//      in four chunks of 256 columns), multiplies the (316 x 256) planes
-//      by it on mma.sync (int8 m16n8k32 into s32, or bf16 m16n8k16 into
-//      f32; 316 rows padded to 320, 20 warps of one 16-row tile each,
-//      their A fragments held in registers for the whole loop), and sums
-//      output rows 0..15 per lane; the carry crosses steps in shared
-//      memory behind __syncthreads(). One block: the probes time
-//      latency, as their references do on one TensorCore.
+//      over a (8, 128) i32 carry in [0, 256). The null loop runs one
+//      thread a carry in one-warp blocks. The seven other CUDA-core
+//      bodies (three one-hot builds each with its 256-deep pick, four
+//      256-deep picks from a (256, 8) table, the reference's (256, 8,
+//      128) table being that one broadcast over lanes, :145-147) run one
+//      warp a carry, 8 warps a block, 128 blocks: each lane computes 8 of
+//      the 256 terms (compare, select or product, add) and a shuffle tree
+//      combines the 32 partial sums, so that every lane holds the next
+//      carry. The two fetch cores are a one-hot product on the tensor
+//      cores, as the reference's is on the MXU, 8 carry columns a CTA,
+//      128 CTAs: each holds the (316 x 256) plane P^T in shared memory,
+//      builds its columns' one-hot each step and multiplies on wgmma
+//      (m64n8k32 int8 into s32, or m64n8k16 bf16 into f32, 5 M-tiles),
+//      output rows 0..15 summed per column.
 //
 // Bound. Each probe is a chain of dependent steps on 1,024 lanes, so what
-// bounds it is latency, not bytes (8 KB in and out) nor, but for the fetch
-// cores, operations: chip_smoke.py holds P1 to its chain floor (the
-// dependent integer ops of a step times their latency) and P3 to the
-// larger of its operations at the card's peak rate and its dependent
-// depth. Each carry passes an empty asm barrier once a step, so that the
-// compiler can neither fold steps together nor hoist them out of the
-// loop; each kernel writes its loop's clock64() cycles (thread 0) when
-// asked, so that a check can see the loop's time without the launch's.
+// bounds it is latency or operations, not bytes (8 KB in and out):
+// chip_smoke.py holds each body to the largest of its operations at the
+// card's peak rate for their type, its dependent chain at an integer op's
+// latency, and its bytes. The split bodies keep every term the bound
+// counts (no pick by one load, no product of the summed rows alone), so
+// no share can pass 1. Each carry passes an empty asm barrier once a
+// step, so that the compiler can neither fold steps together nor hoist
+// them out of the loop; each kernel writes its loop's clock64() cycles
+// (thread 0 of block 0) when asked, so that a check can see the loop's
+// time without the launch's.
 
 #include "common.cuh"
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,21 +90,29 @@ __device__ __forceinline__ void opaque(int32_t& v) {
 enum LoopVariant : int { kChain = 0, kScratch = 1, kStore = 2, kWide = 3,
                          kDep = 4 };
 constexpr int kLanes = 8 * 128;
-// The one-op chain runs 32 blocks of one warp, a warp on each of 32 SMs,
-// so that each op waits on the one before it and on nothing else: its
-// time per op is an integer op's dependent latency. In one block of 1,024
-// threads the 32 warps of an SM share its 64 INT32 lanes, and a chain of
-// one-op steps runs at that throughput instead (16 cycles an op).
-constexpr int kDepBlocks = 32;
+constexpr int kWarp = 32;
+// `wide`'s lanes a carry: 8 terms of the 64 a lane, a 3-level shuffle
+// tree. Finer, the tree's dependent shuffles (~25 cycles each) cost more
+// than the terms they take off a lane; coarser, a lane's 3 ops a term
+// go through its warp's scheduler one at a time.
+constexpr int kWideSplit = 8;
+
+// Whatever the kernel's block, thread g works on carry g / kSplit.
+template <int V>
+__host__ __device__ constexpr int loop_split() {
+  return V == kWide ? kWideSplit : 1;
+}
 
 template <int V, int N>
 __global__ void __launch_bounds__(kLanes)
     loop_calib_kernel(const uint32_t* __restrict__ x,
                       uint32_t* __restrict__ out, int iters,
                       long long* __restrict__ cycles) {
+  constexpr int kSplit = loop_split<V>();
   __shared__ uint32_t scratch[kLanes];
   volatile uint32_t* scr = scratch + threadIdx.x;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = g / kSplit, j = g % kSplit;
   const uint32_t x0 = x[t];
   uint32_t c = x0;
   const long long t0 = clock64();
@@ -114,10 +132,15 @@ __global__ void __launch_bounds__(kLanes)
     } else if constexpr (V == kWide) {
 #pragma unroll
       for (int k = 0; k < N; ++k) {
+        // this lane's terms m = j + 8 q of the 64
         const uint32_t sel = c & 63u;
         uint32_t s = 0;
 #pragma unroll
-        for (int j = 0; j < 64; ++j) s += (uint32_t(j) == sel) ? x0 : 0u;
+        for (int q = 0; q < 64 / kSplit; ++q)
+          s += (uint32_t(j + kSplit * q) == sel) ? x0 : 0u;
+#pragma unroll
+        for (int o = 1; o < kSplit; o <<= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
         c += s;
         opaque(c);
       }
@@ -133,37 +156,8 @@ __global__ void __launch_bounds__(kLanes)
     }
     opaque(c);
   }
-  if (cycles != nullptr && t == 0) *cycles = clock64() - t0;
-  out[t] = c;
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core products (mma.sync; A row-major, B column-major)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t* a,
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four int8 bytes, the first in the low byte (an mma fragment register).
-__device__ __forceinline__ uint32_t pack4(int8_t e0, int8_t e1, int8_t e2,
-                                          int8_t e3) {
-  return uint32_t(uint8_t(e0)) | uint32_t(uint8_t(e1)) << 8 |
-         uint32_t(uint8_t(e2)) << 16 | uint32_t(uint8_t(e3)) << 24;
+  if (cycles != nullptr && g == 0) *cycles = clock64() - t0;
+  if (j == 0) out[t] = c;
 }
 
 // ---------------------------------------------------------------------------
@@ -250,9 +244,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
 
 // Keeps the compiler from moving accesses of the accumulators across the
 // wgmma fences and waits (the asm below names them; the waits do not).
-__device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_s8_m64n128k32(int32_t (&d)[64],
@@ -435,9 +435,20 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// P3, the CUDA-core bodies: thread t holds the carry of element
-// (r, l) = (t / 128, t % 128); every body but the null loop is a 256-deep
-// masked sum whose one selected term is the next carry.
+// P3, the CUDA-core bodies. Every body but the null loop is a 256-deep
+// masked sum whose one selected term is the next carry. Carry t (element
+// (r, l) = (t / 128, t % 128)) belongs to warp t % 8 of block t / 8, and
+// lane j of that warp computes the terms k = j + 32 q, q < 8, in the
+// body's own type; a butterfly of __shfl_xor_sync (lane distance 1, 2,
+// 4, 8, 16) adds the 32 partial sums in that type, so every lane holds
+// the sum. The sums are exact in any order: one term alone is nonzero
+// (the f32 and bf16-to-f32 sums), or they are modular (int32, int8 wrap,
+// then & 255). A warp a carry: 1,024 warps, 8 to an SM, two to a
+// scheduler, so that one warp's shuffle waits overlap another's terms
+// (8 lanes a carry would leave one warp to an SM, its 96 ops a step and
+// 3 shuffles dispatched back to back). The pick table lies in shared memory
+// transposed, row r's 256 entries contiguous, so a warp's 32 reads of one
+// q hit 32 banks; a lane's 8 entries do not change across steps.
 // ---------------------------------------------------------------------------
 
 enum VpuVariant : int {
@@ -447,26 +458,59 @@ enum VpuVariant : int {
 };
 constexpr int kDepth = 256;
 constexpr int kRows = 8;
+constexpr int kPickLanes = 32;                   // lanes a carry
+constexpr int kPickTerms = kDepth / kPickLanes;  // terms a lane
+constexpr int kPickWarps = 8;                    // carries a block
 
 template <int V>
-__global__ void __launch_bounds__(kLanes)
+__host__ __device__ constexpr int vpu_split() {
+  return V == kNull ? 1 : kPickLanes;
+}
+
+// The butterfly: every lane ends with the sum of the 32 lanes' v.
+__device__ __forceinline__ int32_t warp_sum(int32_t v) {
+#pragma unroll
+  for (int o = 1; o < kPickLanes; o <<= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < kPickLanes; o <<= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ int8_t warp_sum(int8_t v) {
+#pragma unroll
+  for (int o = 1; o < kPickLanes; o <<= 1)
+    v = int8_t(v + int8_t(__shfl_xor_sync(0xffffffffu, int32_t(v), o)));
+  return v;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kPickWarps * kPickLanes)
     vpu_probe_kernel(const int32_t* __restrict__ x,
                      const void* __restrict__ table,
                      int32_t* __restrict__ out, int iters,
                      long long* __restrict__ cycles) {
-  // the (256, 8) table: int32, float or int8 by variant
-  __shared__ int32_t tab[kDepth * kRows];
-  const int t = threadIdx.x, r = t >> 7;
+  constexpr int kSplit = vpu_split<V>();
+  // the (256, 8) table transposed to (8, 256): int32, float or int8
+  __shared__ int32_t tab[kRows * kDepth];
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = g / kSplit, j = g % kSplit, r = t >> 7;
   if constexpr (V == kPickI32 || V == kPickF32) {
-    for (int i = t; i < kDepth * kRows; i += kLanes)
-      tab[i] = static_cast<const int32_t*>(table)[i];
+    for (int i = threadIdx.x; i < kDepth * kRows; i += blockDim.x)
+      tab[(i % kRows) * kDepth + i / kRows] =
+          static_cast<const int32_t*>(table)[i];
   } else if constexpr (V == kPickI8I32 || V == kPickI8I8) {
-    for (int i = t; i < kDepth * kRows; i += kLanes)
-      reinterpret_cast<int8_t*>(tab)[i] = static_cast<const int8_t*>(table)[i];
+    for (int i = threadIdx.x; i < kDepth * kRows; i += blockDim.x)
+      reinterpret_cast<int8_t*>(tab)[(i % kRows) * kDepth + i / kRows] =
+          static_cast<const int8_t*>(table)[i];
   }
   __syncthreads();
-  const int8_t* tab8 = reinterpret_cast<const int8_t*>(tab);
-  const float* tabf = reinterpret_cast<const float*>(tab);
+  const int32_t* row = tab + r * kDepth;
+  const int8_t* row8 = reinterpret_cast<const int8_t*>(tab) + r * kDepth;
+  const float* rowf = reinterpret_cast<const float*>(row);
   int32_t c = x[t];
   const long long t0 = clock64();
   for (int i = 0; i < iters; ++i) {
@@ -474,219 +518,301 @@ __global__ void __launch_bounds__(kLanes)
       c = (c + 1) & 255;
     } else if constexpr (V == kOnehotI32I8) {
       int32_t s = 0;
-#pragma unroll 16
-      for (int k = 0; k < kDepth; ++k) {
-        const int8_t oh = int8_t(c == k);
-        s += int32_t(oh) * k;
+#pragma unroll
+      for (int q = 0; q < kPickTerms; ++q) {
+        const int k = j + kPickLanes * q;
+        s += int32_t(int8_t(c == k)) * k;
       }
-      c = s & 255;
+      c = warp_sum(s) & 255;
     } else if constexpr (V == kOnehotBf16) {
       const __nv_bfloat16 cb = __int2bfloat16_rn(c);
       const __nv_bfloat16 one = __float2bfloat16(1.0f);
       const __nv_bfloat16 zero = __float2bfloat16(0.0f);
       float s = 0.0f;
-#pragma unroll 16
-      for (int k = 0; k < kDepth; ++k) {
-        const __nv_bfloat16 kb = __int2bfloat16_rn(k);
+#pragma unroll
+      for (int q = 0; q < kPickTerms; ++q) {
+        const __nv_bfloat16 kb = __int2bfloat16_rn(j + kPickLanes * q);
         const __nv_bfloat16 oh = __heq(cb, kb) ? one : zero;
         s += __bfloat162float(__hmul(oh, kb));
       }
-      c = int32_t(s) & 255;
+      c = int32_t(warp_sum(s)) & 255;
     } else if constexpr (V == kOnehotFact) {
-      int8_t hi[16], lo[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        hi[j] = int8_t((c >> 4) == j);
-        lo[j] = int8_t((c & 15) == j);
-      }
+      // the 16 x 16 outer product's terms p = 16 h + l: this lane's share
+      // p = j + 32 q has l = j % 16 and h = 2 q + j / 16
+      const int8_t lo = int8_t((c & 15) == (j & 15));
       int32_t s = 0;
 #pragma unroll
-      for (int h = 0; h < 16; ++h)
-#pragma unroll
-        for (int l = 0; l < 16; ++l)
-          s += int32_t(int8_t(hi[h] * lo[l])) * (h * 16 + l);
-      c = s & 255;
+      for (int q = 0; q < kPickTerms; ++q) {
+        const int8_t hi = int8_t((c >> 4) == 2 * q + (j >> 4));
+        s += int32_t(int8_t(hi * lo)) * (j + kPickLanes * q);
+      }
+      c = warp_sum(s) & 255;
     } else if constexpr (V == kPickI32) {
       int32_t s = 0;
-#pragma unroll 16
-      for (int k = 0; k < kDepth; ++k) s += (c == k) ? tab[k * kRows + r] : 0;
-      c = s & 255;
+#pragma unroll
+      for (int q = 0; q < kPickTerms; ++q) {
+        const int k = j + kPickLanes * q;
+        s += (c == k) ? row[k] : 0;
+      }
+      c = warp_sum(s) & 255;
     } else if constexpr (V == kPickI8I32) {
       int32_t s = 0;
-#pragma unroll 16
-      for (int k = 0; k < kDepth; ++k)
-        s += int32_t(int8_t(int8_t(c == k) * tab8[k * kRows + r]));
-      c = s & 255;
+#pragma unroll
+      for (int q = 0; q < kPickTerms; ++q) {
+        const int k = j + kPickLanes * q;
+        s += int32_t(int8_t(int8_t(c == k) * row8[k]));
+      }
+      c = warp_sum(s) & 255;
     } else if constexpr (V == kPickI8I8) {
       int8_t s8 = 0;
-#pragma unroll 16
-      for (int k = 0; k < kDepth; ++k)
-        s8 = int8_t(s8 + int8_t(int8_t(c == k) * tab8[k * kRows + r]));
-      c = int32_t(s8) & 255;
+#pragma unroll
+      for (int q = 0; q < kPickTerms; ++q) {
+        const int k = j + kPickLanes * q;
+        s8 = int8_t(s8 + int8_t(int8_t(c == k) * row8[k]));
+      }
+      c = int32_t(warp_sum(s8)) & 255;
     } else if constexpr (V == kPickF32) {
       float s = 0.0f;
-#pragma unroll 16
-      for (int k = 0; k < kDepth; ++k)
-        s += (c == k) ? tabf[k * kRows + r] : 0.0f;
-      c = int32_t(s) & 255;
+#pragma unroll
+      for (int q = 0; q < kPickTerms; ++q) {
+        const int k = j + kPickLanes * q;
+        s += (c == k) ? rowf[k] : 0.0f;
+      }
+      c = int32_t(warp_sum(s)) & 255;
     }
     opaque(c);
   }
-  if (cycles != nullptr && t == 0) *cycles = clock64() - t0;
-  out[t] = c;
+  if (cycles != nullptr && g == 0) *cycles = clock64() - t0;
+  if (j == 0) out[t] = c;
 }
 
 // ---------------------------------------------------------------------------
-// P3, the fetch cores: next carry of lane n = sum_{j < 16} P[c_n, j]
+// P3, the fetch cores: next carry of column n = sum_{j < 16} P[c_n, j]
 // (+ 128 * 16 for int8), & 255, where P is the (256, 316) plane and the
 // product P^T (316 x 256, padded to 320 rows) . onehot(c) (256 x 1,024)
-// runs on the tensor cores. Warp w holds rows 16 w..16 w + 15 of P^T as
-// A fragments in registers (int8: 8 k-steps of 4 registers; bf16: 16
-// k-steps of 4) and, per chunk of 256 carry columns, multiplies them by
-// every 8-column tile of the chunk's one-hot; warp 0's tile is rows 0..15,
-// whose column sums are the next carry. The one-hot chunk is column-major
-// in shared memory (a column's 256 k contiguous), each column padded by
-// 16 bytes so that a fragment load hits 32 distinct banks.
+// runs on the tensor cores. CTA b takes carry columns 8 b .. 8 b + 7, one
+// warpgroup of 128 threads:
+//   - once, P^T into shared memory: 5 M-tiles of 64 rows, each row's 256
+//     K elements in 128-byte K atoms (2 for int8, 4 for bf16), every
+//     (M-tile, atom) block 64 rows x 128 bytes, 128-byte swizzled as
+//     P2's A tile (byte (r, kb) at r * 128 + ((kb / 16) ^ (r % 8)) * 16 +
+//     kb % 16), rows 316..319 zero; read from global memory a word of 4
+//     rows at a time, coalesced along P's rows, and transposed in
+//     registers (byte_perm) so that it is stored 16 bytes at a time (a
+//     byte at a time, a warp's 32 stores to rows 4 apart would fall in
+//     one bank);
+//   - each step, the one-hot of the CTA's 8 carries as B: 8 rows (the
+//     columns) of 256 K elements, K-major in the same atoms and swizzle,
+//     one 16-byte store a thread (two for bf16), the 1 (0x01 or bf16
+//     0x3F80) at K element c_n; then every M-tile on wgmma, m64n8k32 s8
+//     into s32 or m64n8k16 bf16 into f32, 8 or 16 k-steps of 32 bytes,
+//     each through sw128_desc as in P2 (plus 2 a k-step inside an atom);
+//   - warp 0 holds output rows 0..15 of M-tile 0 (the accumulator
+//     fragment of P2's epilogue at n8: d[e] is row lane / 4 + 8 (e / 2),
+//     column 2 (lane % 4) + e % 2): it adds its two rows, then over the 8
+//     lanes of a column by shuffles, and lanes 0..3 store the next
+//     carries in shared memory behind a barrier.
+// What holds the design back: each step's (320 x 256 x 8) product reads
+// the whole plane from shared memory (80 KB int8, 160 KB bf16); at 128
+// bytes a cycle that is ~640 (1,280) cycles a step, some 4x the tensor
+// cores' time for 8 columns. More columns a CTA would not shorten a step
+// and would leave SMs idle: 8 columns a CTA spread the 1,024 over 128.
 // ---------------------------------------------------------------------------
 
 constexpr int kPlaneCols = 316;
-constexpr int kFetchWarps = 20;                 // 320 rows / 16
-constexpr int kChunk = 256;                     // carry columns per chunk
+constexpr int kPlaneRows = 320;                 // P^T's rows, 5 M-tiles
+constexpr int kFetchMTiles = kPlaneRows / 64;
+constexpr int kFetchN = 8;                      // carry columns a CTA
+constexpr int kFetchThreads = 128;              // one warpgroup
 constexpr int kSum = 16;                        // rows summed
+constexpr int kAtom = 128;                      // K bytes of a swizzle atom
 
 template <bool kBf16>
 struct Fetch {
   static constexpr int kElem = kBf16 ? 2 : 1;
-  static constexpr int kStride = kDepth * kElem + 16;   // bytes a column
-  static constexpr int kKStep = kBf16 ? 16 : 32;
-  static constexpr int kKSteps = kDepth / kKStep;
-  static constexpr int kSmem = kChunk * kStride + 2 * kLanes * 4;
+  static constexpr int kAtoms = kDepth * kElem / kAtom;     // 2 | 4
+  static constexpr int kKSteps = kDepth * kElem / 32;       // 8 | 16
+  static constexpr int kABlock = 64 * kAtom;                // 8 KB
+  static constexpr int kAImage = kFetchMTiles * kAtoms * kABlock;
+  static constexpr int kBImage = kAtoms * kFetchN * kAtom;  // 2 | 4 KB
+  // the images, 1,024-byte aligned by hand, and the carries
+  static constexpr int kSmem = kAImage + kBImage + 1024 + 4 * kFetchN;
 };
 
-// A fragment register `i` (0..3) of k-step `ks` for warp row tile m0.
-// int8 m16n8k32: a0 (row g, k 4q..4q+3), a1 (row g+8), a2 / a3 at k + 16.
-// bf16 m16n8k16: a0 (row g, k 2q, 2q+1), a1 (row g+8), a2 / a3 at k + 8.
-template <bool kBf16>
-__device__ __forceinline__ uint32_t plane_frag(const void* planes, int m0,
-                                               int ks, int i, int g,
-                                               int q) {
-  const int row = m0 + g + ((i & 1) ? 8 : 0);
-  if constexpr (kBf16) {
-    const uint16_t* p = static_cast<const uint16_t*>(planes);
-    const int k = ks * 16 + 2 * q + ((i & 2) ? 8 : 0);
-    if (row >= kPlaneCols) return 0;
-    return uint32_t(p[k * kPlaneCols + row]) |
-           uint32_t(p[(k + 1) * kPlaneCols + row]) << 16;
-  }
-  const int8_t* p = static_cast<const int8_t*>(planes);
-  const int k = ks * 32 + 4 * q + ((i & 2) ? 16 : 0);
-  if (row >= kPlaneCols) return 0;
-  return pack4(p[k * kPlaneCols + row], p[(k + 1) * kPlaneCols + row],
-               p[(k + 2) * kPlaneCols + row], p[(k + 3) * kPlaneCols + row]);
+// Byte offset of K byte kb (0..255 * elem) of row r (0..63) in a swizzled
+// image of 64- or 8-row blocks of one K atom each, `block` bytes apart.
+__device__ __forceinline__ int sw128_offset(int r, int kb, int block) {
+  return (kb / kAtom) * block + r * kAtom +
+         ((((kb % kAtom) >> 4) ^ (r & 7)) << 4) + (kb & 15);
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n8k32(int32_t (&d)[4],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_m64n8k16(float (&d)[4],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
 }
 
 template <bool kBf16>
-__global__ void __launch_bounds__(kFetchWarps * 32, 1)
+__global__ void __launch_bounds__(kFetchThreads, 1)
     vpu_fetch_kernel(const int32_t* __restrict__ x,
                      const void* __restrict__ planes,
                      int32_t* __restrict__ out, int iters,
                      long long* __restrict__ cycles) {
   using F = Fetch<kBf16>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* oh = smem;
-  int32_t* carry = reinterpret_cast<int32_t*>(smem + kChunk * F::kStride);
-  int32_t* next = carry + kLanes;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  constexpr int kThreads = kFetchWarps * 32;
+  using Acc = std::conditional_t<kBf16, float, int32_t>;
+  extern __shared__ unsigned char fetch_smem_raw[];
+  unsigned char* a_img =
+      fetch_smem_raw + ((1024 - (smem_u32(fetch_smem_raw) & 1023)) & 1023);
+  unsigned char* b_img = a_img + F::kAImage;
+  int32_t* carry = reinterpret_cast<int32_t*>(b_img + F::kBImage);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int col0 = blockIdx.x * kFetchN;
 
-  uint32_t a[F::kKSteps][4];
+  // P^T, an item (w, kc) a thread: P^T rows 4 w .. 4 w + 3 (a word of
+  // each of P's rows, consecutive threads on consecutive words) at K
+  // chunk kc (16 bytes), transposed in registers into 4 rows of 16 bytes
+  // and stored as 16-byte vectors; word 79 is the zero padding
+  constexpr int kWords = kPlaneRows / 4;
+  constexpr int kChunks = kDepth * F::kElem / 16;
+  for (int i = tid; i < kWords * kChunks; i += kFetchThreads) {
+    const int w = i % kWords, kc = i / kWords;
+    uint32_t rows[4][4];
+    if constexpr (kBf16) {
+      // 8 K elements: word m of row r holds elements 2 m, 2 m + 1
+      uint2 v[8];
 #pragma unroll
-  for (int ks = 0; ks < F::kKSteps; ++ks)
+      for (int e = 0; e < 8; ++e)
+        v[e] = 4 * w < kPlaneCols
+                   ? *reinterpret_cast<const uint2*>(
+                         static_cast<const uint16_t*>(planes) +
+                         (8 * kc + e) * kPlaneCols + 4 * w)
+                   : make_uint2(0, 0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[ks][i] = plane_frag<kBf16>(planes, warp * 16, ks, i, g, q);
-  for (int i = tid; i < kLanes; i += kThreads) carry[i] = x[i];
+      for (int m = 0; m < 4; ++m) {
+        rows[0][m] = __byte_perm(v[2 * m].x, v[2 * m + 1].x, 0x5410);
+        rows[1][m] = __byte_perm(v[2 * m].x, v[2 * m + 1].x, 0x7632);
+        rows[2][m] = __byte_perm(v[2 * m].y, v[2 * m + 1].y, 0x5410);
+        rows[3][m] = __byte_perm(v[2 * m].y, v[2 * m + 1].y, 0x7632);
+      }
+    } else {
+      // 16 K bytes: word m of row r holds bytes 4 m .. 4 m + 3
+      uint32_t u[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        u[e] = 4 * w < kPlaneCols
+                   ? *reinterpret_cast<const uint32_t*>(
+                         static_cast<const uint8_t*>(planes) +
+                         (16 * kc + e) * kPlaneCols + 4 * w)
+                   : 0u;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t c[4];
+        transpose4x4(u[4 * m], u[4 * m + 1], u[4 * m + 2], u[4 * m + 3], c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) rows[r][m] = c[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 4 * w + r;
+      *reinterpret_cast<uint4*>(
+          a_img + (row / 64) * F::kAtoms * F::kABlock +
+          sw128_offset(row % 64, 16 * kc, F::kABlock)) =
+          make_uint4(rows[r][0], rows[r][1], rows[r][2], rows[r][3]);
+    }
+  }
+  if (tid < kFetchN) carry[tid] = x[col0 + tid];
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
+  uint64_t da[kFetchMTiles], db;
+  for (int m = 0; m < kFetchMTiles; ++m)
+    da[m] = sw128_desc(smem_u32(a_img + m * F::kAtoms * F::kABlock));
+  db = sw128_desc(smem_u32(b_img));
+  Acc d[kFetchMTiles][4] = {};
+  const int n = tid >> 4;          // the one-hot column this thread writes
   const long long t0 = clock64();
   for (int step = 0; step < iters; ++step) {
-    for (int ch = 0; ch < kLanes / kChunk; ++ch) {
-      // the chunk's one-hot, 16 bytes a store: vector v of column col
-      // holds k = v * (16 / elem) .. ; one element is 1 where k == carry
-      constexpr int kVecs = kDepth * F::kElem / 16;
-      for (int idx = tid; idx < kChunk * kVecs; idx += kThreads) {
-        const int col = idx / kVecs, v = idx % kVecs;
-        const int cc = carry[ch * kChunk + col];
-        uint32_t w[4] = {0, 0, 0, 0};
-        if constexpr (kBf16) {
-          if ((cc >> 3) == v)                 // 8 bf16 a vector; 1.0 = 0x3F80
-            w[(cc & 7) >> 1] = 0x3F80u << (16 * (cc & 1));
-        } else {
-          if ((cc >> 4) == v)                 // 16 int8 a vector
-            w[(cc & 15) >> 2] = 1u << (8 * (cc & 3));
-        }
-        *reinterpret_cast<uint4*>(oh + col * F::kStride + v * 16) =
-            make_uint4(w[0], w[1], w[2], w[3]);
+    // the one-hot: 16-byte vector v of column n holds K bytes 16 v ..
+    const int cc = carry[n];
+#pragma unroll
+    for (int h = 0; h < F::kElem; ++h) {
+      const int v = (tid & 15) + 16 * h;
+      uint32_t w[4] = {0, 0, 0, 0};
+      if constexpr (kBf16) {
+        if ((cc >> 3) == v) w[(cc & 7) >> 1] = 0x3F80u << (16 * (cc & 1));
+      } else {
+        if ((cc >> 4) == v) w[(cc & 15) >> 2] = 1u << (8 * (cc & 3));
       }
-      __syncthreads();
-      for (int nt = 0; nt < kChunk / 8; ++nt) {
-        const unsigned char* bcol = oh + (nt * 8 + g) * F::kStride;
-        int32_t di[4] = {0, 0, 0, 0};
-        float df[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int ks = 0; ks < F::kKSteps; ++ks) {
-          if constexpr (kBf16) {
-            const int kb = (ks * 16 + 2 * q) * 2;
-            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bcol + kb);
-            const uint32_t b1 =
-                *reinterpret_cast<const uint32_t*>(bcol + kb + 16);
-            mma_bf16(df, a[ks], b0, b1);
-          } else {
-            const int kb = ks * 32 + 4 * q;
-            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bcol + kb);
-            const uint32_t b1 =
-                *reinterpret_cast<const uint32_t*>(bcol + kb + 16);
-            mma_s8(di, a[ks], b0, b1);
-          }
-        }
-        if (warp == 0) {
-          // column sums of rows 0..15: this lane's two rows, then over g
-          int32_t s0, s1;
-          if constexpr (kBf16) {
-            float f0 = df[0] + df[2], f1 = df[1] + df[3];
-#pragma unroll
-            for (int o = 4; o < 32; o <<= 1) {
-              f0 += __shfl_xor_sync(0xffffffffu, f0, o);
-              f1 += __shfl_xor_sync(0xffffffffu, f1, o);
-            }
-            s0 = int32_t(f0) & 255;
-            s1 = int32_t(f1) & 255;
-          } else {
-            s0 = di[0] + di[2];
-            s1 = di[1] + di[3];
-#pragma unroll
-            for (int o = 4; o < 32; o <<= 1) {
-              s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-              s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-            }
-            s0 = (s0 + 128 * kSum) & 255;
-            s1 = (s1 + 128 * kSum) & 255;
-          }
-          if (g == 0) {
-            next[ch * kChunk + nt * 8 + 2 * q] = s0;
-            next[ch * kChunk + nt * 8 + 2 * q + 1] = s1;
-          }
-        }
-      }
-      __syncthreads();
+      *reinterpret_cast<uint4*>(b_img + sw128_offset(n, 16 * v, kFetchN *
+                                                     kAtom)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
-    int32_t* done = next;
-    next = carry;
-    carry = done;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kFetchMTiles; ++m) fence_acc(d[m]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int m = 0; m < kFetchMTiles; ++m) {
+#pragma unroll
+      for (int ks = 0; ks < F::kKSteps; ++ks) {
+        // a 128-byte atom holds 4 k-steps; the atoms of an M-tile's rows
+        // lie kABlock apart, those of the one-hot 1,024 bytes apart
+        const uint64_t a = da[m] + ((ks / 4) * F::kABlock >> 4) + 2 * (ks % 4);
+        const uint64_t b = db + ((ks / 4) * kFetchN * kAtom >> 4) +
+                           2 * (ks % 4);
+        if constexpr (kBf16)
+          wgmma_bf16_m64n8k16(d[m], a, b, ks > 0);
+        else
+          wgmma_s8_m64n8k32(d[m], a, b, ks > 0);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int m = 0; m < kFetchMTiles; ++m) fence_acc(d[m]);
+    if (tid < 32) {
+      // column sums of rows 0..15: this lane's two rows, then over the 8
+      // lanes (lane / 4) of each column
+      Acc s0 = d[0][0] + d[0][2], s1 = d[0][1] + d[0][3];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (lane < 4) {
+        if constexpr (kBf16) {
+          carry[2 * lane] = int32_t(s0) & 255;
+          carry[2 * lane + 1] = int32_t(s1) & 255;
+        } else {
+          carry[2 * lane] = (s0 + 128 * kSum) & 255;
+          carry[2 * lane + 1] = (s1 + 128 * kSum) & 255;
+        }
+      }
+    }
+    __syncthreads();
   }
-  if (cycles != nullptr && tid == 0) *cycles = clock64() - t0;
-  for (int i = tid; i < kLanes; i += kThreads) out[i] = carry[i];
+  if (cycles != nullptr && blockIdx.x == 0 && tid == 0)
+    *cycles = clock64() - t0;
+  if (tid < kFetchN) out[col0 + tid] = carry[tid];
 }
 
 template <bool kBf16>
@@ -697,8 +823,8 @@ int launch_fetch(const int32_t* x, const void* planes, int32_t* out,
       vpu_fetch_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return (int)e;
-  vpu_fetch_kernel<kBf16><<<1, kFetchWarps * 32, bytes, stream>>>(
-      x, planes, out, iters, cycles);
+  vpu_fetch_kernel<kBf16><<<kLanes / kFetchN, kFetchThreads, bytes,
+                            stream>>>(x, planes, out, iters, cycles);
   return (int)cudaGetLastError();
 }
 
@@ -710,12 +836,13 @@ extern "C" int mhc_loop_calib(const uint32_t* x, uint32_t* out, int variant,
                               int n_ops, int iters, long long* cycles,
                               cudaStream_t stream) {
   if (iters < 0) return (int)cudaErrorInvalidValue;
-  // the one-op chain: one warp a block, a warp an SM (see kDepBlocks)
+  // one-warp blocks but for `scratch`, one block of 1,024 threads
 #define MHC_LOOP_CASE(V, N)                                              \
   if (variant == V && n_ops == N) {                                      \
-    const int blocks = V == kDep ? kDepBlocks : 1;                       \
-    loop_calib_kernel<V, N><<<blocks, kLanes / blocks, 0, stream>>>(     \
-        x, out, iters, cycles);                                          \
+    const int threads = V == kScratch ? kLanes : kWarp;                  \
+    loop_calib_kernel<V, N>                                              \
+        <<<kLanes * loop_split<V>() / threads, threads, 0, stream>>>(    \
+            x, out, iters, cycles);                                      \
     return (int)cudaGetLastError();                                      \
   }
   MHC_LOOP_CASE(kChain, 4)
@@ -811,11 +938,14 @@ extern "C" int mhc_vpu_probe(const int32_t* x, const void* table,
                              int32_t* out, int variant, int iters,
                              long long* cycles, cudaStream_t stream) {
   if (iters < 0) return (int)cudaErrorInvalidValue;
+  // the null loop one-warp blocks, the split bodies 8 warps a block
 #define MHC_VPU_CASE(V)                                                  \
-  case V:                                                                \
-    vpu_probe_kernel<V><<<1, kLanes, 0, stream>>>(x, table, out, iters,  \
-                                                  cycles);               \
-    return (int)cudaGetLastError();
+  case V: {                                                              \
+    const int threads = V == kNull ? kWarp : kPickWarps * kPickLanes;    \
+    vpu_probe_kernel<V><<<kLanes * vpu_split<V>() / threads, threads, 0, \
+                          stream>>>(x, table, out, iters, cycles);       \
+    return (int)cudaGetLastError();                                      \
+  }
   switch (variant) {
     MHC_VPU_CASE(kNull)
     MHC_VPU_CASE(kOnehotI32I8)

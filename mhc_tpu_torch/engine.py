@@ -195,17 +195,29 @@ def _offsets(lens: np.ndarray) -> np.ndarray:
     return out
 
 
-def check_unit_lengths(byte_lens: np.ndarray, du: int,
-                       aligned: bool) -> None:
-    """Raises ValueError when a unit's container-layout length is over the
-    longest stream the encoder can write for a `du`-byte unit: the
-    stream row's words_for_block(du) words (aligned layout) or ceil(du *
-    15 / 8) bytes (unaligned); a literal unit, du bytes, is shorter than
-    both. A length index rewritten to claim more must not size the
-    expansion buffer."""
+def check_unit_lengths(byte_lens: np.ndarray, du: int, aligned: bool,
+                       orig_len: int) -> None:
+    """Raises ValueError when a unit's container-layout length lies
+    outside what the encoder can write for its m symbols (`du`, fewer in
+    the last unit of `orig_len` bytes). Above: the stream row's
+    words_for_block(du) words (aligned layout) or ceil(du * 15 / 8) bytes
+    (unaligned); a literal unit, du bytes, is shorter than both. A length
+    index rewritten to claim more must not size the expansion buffer.
+    Below: every code is a bit at least, so 4 * ceil(m / 32) bytes
+    (aligned) or ceil(m / 8); a shorter, or negative, length cannot hold
+    the unit, and an `orig_len` that claims more output than the index
+    can hold is refused before the output is sized by it."""
     worst = (bitpack.words_for_block(du) * 4 if aligned
              else -(-du * MAX_CODE_LEN // 8))
-    if len(byte_lens) and int(np.max(byte_lens)) > worst:
+    if not len(byte_lens):
+        return
+    lens = np.asarray(byte_lens, np.int64)
+    if int(lens.max()) > worst:
+        raise ValueError("mhc: corrupt container (unit length)")
+    m = np.full(len(lens), du, np.int64)
+    m[-1] = orig_len - (len(lens) - 1) * du
+    least = 4 * -(-m // 32) if aligned else -(-m // 8)
+    if (lens < least).any():
         raise ValueError("mhc: corrupt container (unit length)")
 
 
@@ -219,7 +231,7 @@ def decode_inputs(enc: EncodeResult):
     du = enc.decode_unit
     R = enc.n_units
     byte_lens = np.asarray(enc.byte_lens, np.int64)
-    check_unit_lengths(byte_lens, du, enc.aligned)
+    check_unit_lengths(byte_lens, du, enc.aligned, enc.orig_len)
     tables = model.tables_from_lengths(enc.lengths, dev)
     if enc.bit_lens is None and not enc.aligned:
         # parsed unaligned container: byte-granular expansion (K12)

@@ -150,7 +150,7 @@ def decompress(blob: bytes, verify: bool = True, host_fraction: float = 0.5,
     # both halves size their rows by the encoder's longest stream
     engine.check_unit_lengths(
         meta.byte_lengths, du,
-        bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD))
+        bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD), meta.orig_len)
     S = _device_units(R, host_fraction)
     starts = np.zeros(R + 1, np.int64)
     np.cumsum(meta.byte_lengths.astype(np.int64), out=starts[1:])

@@ -3,15 +3,16 @@ csrc/probes.cu (sm_90a).
 
 P1 `loop_calib` replaces bench/loop_calib.py:74, P2 `i8_matmul`
 bench/mosaic_probe.py:44 and P3 `vpu_probe` bench/vpu_probe.py:41. Each
-probe's loop runs inside one launch of one block, so what it measures is
-the latency of its building block on this card (the source note says
-which). The plain versions and the dispatch between them and these
-kernels are in `mhc_tpu_torch/bench/probes.py`; these wrappers take CUDA
-tensors only. Each counts its launches in `_build.LAUNCHES` under the
-body's name (`loop_calib/chain_4`, `mosaic_probe/i8_matmul`,
-`vpu_probe/null_loop`, ...). `cycles`, a (1,) int64 tensor on the same
-card, receives the loop's clock64() cycles (thread 0), the loop's time
-without the launch's.
+probe's loop runs inside one launch, its 1,024 independent carries
+spread over the card's SMs (P1's `scratch` alone keeps one block), so
+what it measures is its building block's latency or throughput on this
+card (the source note says which). The plain versions and the dispatch
+between them and these kernels are in `mhc_tpu_torch/bench/probes.py`;
+these wrappers take CUDA tensors only. Each counts its launches in
+`_build.LAUNCHES` under the body's name (`loop_calib/chain_4`,
+`mosaic_probe/i8_matmul`, `vpu_probe/null_loop`, ...). `cycles`, a (1,)
+int64 tensor on the same card, receives the loop's clock64() cycles
+(thread 0 of block 0), the loop's time without the launch's.
 """
 
 from __future__ import annotations
@@ -134,6 +135,9 @@ def vpu_probe(name: str, x: torch.Tensor, steps: int,
         _require(operand, dtype, shape, "operand")
         if operand.device != x.device:
             raise ValueError("the operand must lie on the carry's device")
+        if operand.data_ptr() % 8:
+            # the fetch cores read the plane by 4- and 8-byte words
+            raise ValueError("the operand must be 8-byte aligned")
         ptr = operand.data_ptr()
     elif operand is not None:
         raise ValueError(f"{name} reads no operand")
@@ -149,19 +153,21 @@ def vpu_probe(name: str, x: torch.Tensor, steps: int,
 
 
 # SASS each checked kernel must hold, by (mangled) function name: the
-# fetch cores their tensor-core products, P2 its wgmma (IGMMA), `scratch`
-# its shared memory round trips. Template arguments: vpu_fetch_kernel<bf16
-# = 0 | 1>, loop_calib_kernel<1 (scratch), 8>; loop_calib_kernel<4 (dep),
+# fetch cores and P2 their wgmma (IGMMA int8, HGMMA bf16), `scratch` its
+# shared memory round trips. Template arguments: vpu_fetch_kernel<bf16 =
+# 0 | 1>, loop_calib_kernel<1 (scratch), 8>; loop_calib_kernel<4 (dep),
 # 512>, the one-op chain, is read for its instructions per op.
 SASS_REQUIRED = {
-    "vpu_fetch_kernelILb0E": ("IMMA",),
-    "vpu_fetch_kernelILb1E": ("HMMA",),
+    "vpu_fetch_kernelILb0E": ("IGMMA",),
+    "vpu_fetch_kernelILb1E": ("HGMMA",),
     "i8_matmul_kernel": ("IGMMA",),
     "loop_calib_kernelILi1ELi8E": ("LDS", "STS"),
     "loop_calib_kernelILi4ELi512E": (),
 }
-# ... and what it must not: P2 has no mma.sync product left
-SASS_FORBIDDEN = {"i8_matmul_kernel": ("IMMA",)}
+# ... and what it must not: no mma.sync product is left
+SASS_FORBIDDEN = {"i8_matmul_kernel": ("IMMA",),
+                  "vpu_fetch_kernelILb0E": ("IMMA",),
+                  "vpu_fetch_kernelILb1E": ("HMMA",)}
 
 
 def sass_counts() -> dict:

@@ -142,9 +142,29 @@ def code_lengths(scaled_counts: np.ndarray, max_len: int) -> np.ndarray:
     return out.reshape(counts.shape)
 
 
+def check_code_lengths(lengths) -> None:
+    """Raises ValueError unless every row (last axis) of `lengths` is a
+    prefix code: no length over 15 and a Kraft sum of at most one, sum
+    over nonzero l of 2**(15 - l) <= 2**15. An incomplete set is legal (a
+    one-symbol row has length 1). The native table builders fill each
+    code's 2**(15 - l) entries of a 2**15-entry table, so an over-full
+    set read from a container would write past it."""
+    from ..ops.huffman import MAX_CODE_LEN
+    lens = np.asarray(lengths, dtype=np.int64)
+    if lens.size == 0:
+        return
+    if int(lens.max()) > MAX_CODE_LEN:
+        raise ValueError("mhc: corrupt container (code lengths)")
+    kraft = np.where(lens > 0, 1 << (MAX_CODE_LEN - lens), 0).sum(axis=-1)
+    if int(np.max(kraft)) > 1 << MAX_CODE_LEN:
+        raise ValueError("mhc: corrupt container (code lengths)")
+
+
 def entropy_decode(coded: bytes, lengths: np.ndarray, n_out: int):
     """Decode n_out symbols of a canonical order-0 stream (container
-    metadata sections). Returns (symbols uint8, bytes_consumed)."""
+    metadata sections). Returns (symbols uint8, bytes_consumed). Raises
+    ValueError where `lengths` is no prefix code (check_code_lengths)."""
+    check_code_lengths(lengths)
     lens = np.ascontiguousarray(lengths, dtype=np.uint8)
     A = lens.shape[0]
     src = np.frombuffer(coded, dtype=np.uint8)
@@ -298,8 +318,11 @@ def encode_units(data: np.ndarray, unit: int, packed: np.ndarray,
 
 
 def build_dec_lut(lengths: np.ndarray) -> np.ndarray:
-    """(nctx, 256) lengths -> (nctx, 2**15) uint16 LUT (sym | len << 8)."""
+    """(nctx, 256) lengths -> (nctx, 2**15) uint16 LUT (sym | len << 8).
+    Raises ValueError where a row is no prefix code
+    (check_code_lengths)."""
     lib = require()
+    check_code_lengths(lengths)
     lens = np.ascontiguousarray(lengths, dtype=np.uint8).reshape(-1, 256)
     lut = np.empty((lens.shape[0], 1 << 15), np.uint16)
     lib.mhc_build_dec_lut(lens.ctypes.data, lens.shape[0], lut.ctypes.data)

@@ -484,28 +484,50 @@ def test_sharded_world_of_one_on_the_card(dev, mode):
 # P1-P3, the calibration probes (csrc/probes.cu)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("iters", [1, 3, 64])
+@pytest.mark.parametrize("iters", [0, 1, 3, 64])
 @pytest.mark.parametrize("name", [*probes.LOOP_BODIES, *probes.DEP_BODIES])
 def test_loop_calib_kernel_equals_plain(dev, name, iters):
+    """Every carry of the grid (one-warp blocks; `wide` split over 8
+    lanes) equals the plain version, and thread 0 writes its cycles."""
     variant, n_ops = {**probes.LOOP_BODIES, **probes.DEP_BODIES}[name]
     x = probes.loop_input(dev)
+    cycles = torch.full((1,), -1, dtype=torch.int64, device=dev)
     _build.LAUNCHES.clear()
-    got = probes.loop_calib(name, x, iters)
+    got = probes.loop_calib(name, x, iters, cycles)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[f"loop_calib/{name}"] == 1
     assert torch.equal(got, probes.loop_calib_plain(variant, n_ops, x, iters))
+    assert int(cycles) >= 0
 
 
-@pytest.mark.parametrize("steps", [1, 3, 64])
+@pytest.mark.parametrize("steps", [0, 1, 3, 64])
 @pytest.mark.parametrize("name", probes.VPU_BODIES)
 def test_vpu_probe_kernel_equals_plain(dev, name, steps):
+    """Every carry of the grid (a warp a carry, or 8 columns a CTA for
+    the fetch cores) equals the plain version, and thread 0 of block 0
+    writes its cycles."""
     x = probes.vpu_input(dev)
     operand = probes.vpu_operand(name, dev)
+    cycles = torch.full((1,), -1, dtype=torch.int64, device=dev)
     _build.LAUNCHES.clear()
-    got = probes.vpu_probe(name, x, steps, operand)
+    got = probes.vpu_probe(name, x, steps, operand, cycles)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[f"vpu_probe/{name}"] == 1
     assert torch.equal(got, probes.vpu_probe_plain(name, x, steps, operand))
+    assert int(cycles) >= 0
+
+
+@pytest.mark.parametrize("name", ["pick256_i32", "fetch316_i8_matmul",
+                                  "fetch316_bf16_matmul"])
+def test_vpu_probe_kernel_on_random_carries(dev, name):
+    """Carries of every value in every column (a permutation of 0..255,
+    four times over), 3 steps: the fetch cores' one-hot images and
+    column sums hold for each of a CTA's 8 columns."""
+    perm = np.random.default_rng(11).permutation(1024) & 255
+    x = torch.from_numpy(perm.astype(np.int32).reshape(8, 128)).to(dev)
+    operand = probes.vpu_operand(name, dev)
+    got = probes.vpu_probe(name, x, 3, operand)
+    assert torch.equal(got, probes.vpu_probe_plain(name, x, 3, operand))
 
 
 def test_i8_matmul_kernel_equals_plain_library_and_exact(dev):
@@ -571,8 +593,10 @@ def test_probe_sass_has_tensor_core_products_and_shared_memory():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     counts = probes_cuda.sass_counts()
-    assert counts["vpu_fetch_kernelILb0E"]["IMMA"] > 0
-    assert counts["vpu_fetch_kernelILb1E"]["HMMA"] > 0
+    assert counts["vpu_fetch_kernelILb0E"]["IGMMA"] > 0
+    assert counts["vpu_fetch_kernelILb1E"]["HGMMA"] > 0
+    assert counts["vpu_fetch_kernelILb0E"].get("IMMA", 0) == 0
+    assert counts["vpu_fetch_kernelILb1E"].get("HMMA", 0) == 0
     assert counts["i8_matmul_kernel"]["IGMMA"] > 0
     assert counts["i8_matmul_kernel"].get("IMMA", 0) == 0
     assert counts["loop_calib_kernelILi1ELi8E"]["LDS"] > 0

@@ -479,6 +479,236 @@ def test_i8_matmul_transpose_selectors():
 
 
 # ---------------------------------------------------------------------------
+# The split bodies (csrc/probes.cu): lane j of a carry's group computes the
+# terms j + S q in the body's type, and a butterfly of shuffles (lane
+# distance 1, 2, 4, ...) adds the S partial sums; replayed in numpy
+# ---------------------------------------------------------------------------
+
+PICK_LANES = 32          # kPickLanes: P3's lanes a carry
+WIDE_SPLIT = 8           # kWideSplit: P1 `wide`'s lanes a carry
+SPLIT_BODIES = tuple(b for b in probes.VPU_BODIES
+                     if b != "null_loop" and b not in probes.FETCH_BODIES)
+
+
+def _butterfly(p: np.ndarray) -> np.ndarray:
+    """(carries, S) partials -> the sum every lane holds after the
+    shuffles, added in the partials' own dtype (numpy wraps ints)."""
+    lanes = np.arange(p.shape[1])
+    o = 1
+    while o < p.shape[1]:
+        p = p + p[:, lanes ^ o]
+        o <<= 1
+    assert (p == p[:, :1]).all()
+    return p[:, 0]
+
+
+def _vpu_split_step(name: str, c: np.ndarray, tab: np.ndarray | None):
+    """One step of a split P3 body for the (1,024,) carries c."""
+    j = np.arange(PICK_LANES)[None, :, None]
+    q = np.arange(256 // PICK_LANES)[None, None, :]
+    k = j + PICK_LANES * q                                # (1, 32, 8)
+    cc = c[:, None, None]
+    sel = cc == k
+    if name == "onehot_i32cmp_i8cast_plus_pick":
+        s = (sel.astype(np.int8).astype(np.int32) * k).sum(-1,
+                                                          dtype=np.int32)
+    elif name == "onehot_bf16cmp_plus_pick_bf16":
+        # 0 or k times k's bf16 (exact below 256), summed in float32
+        s = (sel * k).astype(np.float32).sum(-1, dtype=np.float32)
+    elif name == "onehot_16x16_i8mul_plus_pick":
+        lo = ((cc & 15) == (j & 15)).astype(np.int8)
+        hi = ((cc >> 4) == 2 * q + (j >> 4)).astype(np.int8)
+        s = ((hi * lo).astype(np.int8).astype(np.int32) * k).sum(
+            -1, dtype=np.int32)
+    else:
+        # the carry's row of the transposed table, at this lane's k
+        t = tab.T[np.arange(1024) >> 7][:, k[0]]          # (1024, 32, 8)
+        if name == "pick256_i32":
+            s = np.where(sel, t, 0).astype(np.int32).sum(-1, dtype=np.int32)
+        elif name == "pick256_f32":
+            s = np.where(sel, t, 0).astype(np.float32).sum(-1,
+                                                           dtype=np.float32)
+        else:
+            prod = sel.astype(np.int8) * t.astype(np.int8)   # int8 wrap
+            if name == "pick256_i8mul_i32sum":
+                s = prod.astype(np.int32).sum(-1, dtype=np.int32)
+            else:
+                s = np.zeros(prod.shape[:2], np.int8)
+                for qq in range(prod.shape[2]):
+                    s = (s + prod[..., qq]).astype(np.int8)
+    return _butterfly(s).astype(np.int32) & 255
+
+
+@pytest.mark.parametrize("steps", [1, 3, 64])
+@pytest.mark.parametrize("name", SPLIT_BODIES)
+def test_vpu_split_sums_equal_plain(name, steps):
+    operand = probes.vpu_operand(name, CPU)
+    tab = None if operand is None else operand.numpy()
+    c = probes.vpu_input(CPU).numpy().reshape(-1).astype(np.int32)
+    for _ in range(steps):
+        c = _vpu_split_step(name, c, tab)
+    want = probes.vpu_probe_plain(name, probes.vpu_input(CPU), steps,
+                                  operand)
+    np.testing.assert_array_equal(c.reshape(8, 128), want.numpy())
+
+
+@pytest.mark.parametrize("steps", [1, 3, 64])
+@pytest.mark.parametrize("name", ["wide_1", "wide_4"])
+def test_loop_wide_split_sums_equal_plain(name, steps):
+    n_ops = probes.LOOP_BODIES[name][1]
+    x0 = np.arange(1024, dtype=np.uint32)
+    m = (np.arange(WIDE_SPLIT)[:, None]
+         + WIDE_SPLIT * np.arange(64 // WIDE_SPLIT)[None, :])  # (8, 8)
+    c = x0.copy()
+    for _ in range(steps):
+        for _ in range(n_ops):
+            sel = m[None] == (c & np.uint32(63))[:, None, None]
+            part = np.where(sel, x0[:, None, None], np.uint32(0)).sum(
+                -1, dtype=np.uint32)
+            c = c + _butterfly(part)
+    np.testing.assert_array_equal(c.reshape(8, 128),
+                                  _loop_plain(name, steps))
+
+
+# ---------------------------------------------------------------------------
+# The fetch cores (csrc/probes.cu `vpu_fetch_kernel`): the plane's and the
+# one-hot's shared-memory images, the wgmma descriptors' reads and the
+# column sums, replayed in numpy
+# ---------------------------------------------------------------------------
+
+FETCH_ROWS, FETCH_N, ATOM = 320, 8, 128
+
+
+def _sw128_offset(r, kb, block):
+    """sw128_offset: K byte kb of row r, atoms `block` bytes apart."""
+    return ((kb // ATOM) * block + r * ATOM
+            + ((((kb % ATOM) >> 4) ^ (r & 7)) << 4) + (kb & 15))
+
+
+def _fetch_a_image(plane: np.ndarray, elem: int) -> np.ndarray:
+    """The kernel's load of P^T, item by item: P^T rows 4 w .. 4 w + 3 (a
+    word of each of P's rows; word 79 zero) at K chunk kc, transposed by
+    byte_perm into 4 rows of 16 bytes; every byte written once."""
+    atoms = 256 * elem // ATOM
+    img = np.zeros(5 * atoms * 64 * ATOM, np.uint8)
+    writes = np.zeros(img.size, np.int32)
+    raw = np.zeros((256, FETCH_ROWS * elem), np.uint8)
+    raw[:, :316 * elem] = plane.view(np.uint8).reshape(256, 316 * elem)
+    words = raw.view("<u4") if elem == 1 else raw.view("<u8")  # (256, 80)
+    for kc in range(256 * elem // 16):
+        for w in range(FETCH_ROWS // 4):
+            rows = [[0] * 4 for _ in range(4)]
+            if elem == 2:
+                v = [int(words[8 * kc + e, w]) for e in range(8)]
+                x = [(e & 0xFFFFFFFF, e >> 32) for e in v]
+                for m in range(4):
+                    for r, (half, sel) in enumerate(
+                            ((0, 0x5410), (0, 0x7632), (1, 0x5410),
+                             (1, 0x7632))):
+                        rows[r][m] = _byte_perm(x[2 * m][half],
+                                                x[2 * m + 1][half], sel)
+            else:
+                u = [int(words[16 * kc + e, w]) for e in range(16)]
+                for m in range(4):
+                    c = _transpose4x4(*u[4 * m:4 * m + 4])
+                    for r in range(4):
+                        rows[r][m] = c[r]
+            for r in range(4):
+                row = 4 * w + r
+                off = ((row // 64) * atoms * 64 * ATOM
+                       + _sw128_offset(row % 64, 16 * kc, 64 * ATOM))
+                img[off:off + 16] = np.array(rows[r], "<u4").view(np.uint8)
+                writes[off:off + 16] += 1
+    assert (writes == 1).all()
+    return img
+
+
+def _fetch_b_image(c8: np.ndarray, elem: int) -> np.ndarray:
+    """One step's one-hot of a CTA's 8 carries, thread by thread: vector
+    v = tid % 16 (+ 16) of column tid / 16; every byte written once."""
+    img = np.zeros(256 * elem // ATOM * FETCH_N * ATOM, np.uint8)
+    writes = np.zeros(img.size, np.int32)
+    for tid in range(128):
+        n = tid >> 4
+        cc = int(c8[n])
+        for h in range(elem):
+            v = (tid & 15) + 16 * h
+            w = [0, 0, 0, 0]
+            if elem == 2 and cc >> 3 == v:
+                w[(cc & 7) >> 1] = 0x3F80 << (16 * (cc & 1))
+            if elem == 1 and cc >> 4 == v:
+                w[(cc & 15) >> 2] = 1 << (8 * (cc & 3))
+            off = _sw128_offset(n, 16 * v, FETCH_N * ATOM)
+            img[off:off + 16] = np.array(w, "<u4").view(np.uint8)
+            writes[off:off + 16] += 1
+    assert (writes == 1).all()
+    return img
+
+
+def _fetch_desc_read(img, base: int, rows: int, ks: int, elem: int):
+    """The (rows, 32 bytes) a wgmma k-step reads through sw128_desc(base)
+    + 2 (ks % 4) after the atom offset, as float64 values."""
+    r = np.arange(rows)[:, None]
+    kb = np.arange(32)[None, :]
+    addr = base + (r // 8) * 1024 + (r % 8) * ATOM + 32 * (ks % 4) + kb
+    raw = img[addr ^ (((addr >> 7) & 7) << 4)]
+    if elem == 1:
+        return raw.view(np.int8).astype(np.float64)
+    u16 = raw.copy().view("<u2").astype(np.uint32) << 16
+    return u16.view(np.float32).astype(np.float64)
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("name", probes.FETCH_BODIES)
+def test_fetch_index_maps_rebuild_the_product(name, steps):
+    """Every CTA's wgmma reads rebuild P^T (rows 316..319 zero) and the
+    one-hot of its 8 carries, their product is P^T . onehot(c), and the
+    column sums of rows 0..15 through the accumulator fragment and the
+    shuffles give the plain version's next carries."""
+    elem = 2 if "bf16" in name else 1
+    k_steps = 256 * elem // 32
+    atoms = 256 * elem // ATOM
+    plane = probes.vpu_operand(name, CPU)
+    plane_np = (plane.view(torch.int16).numpy() if elem == 2
+                else plane.numpy())
+    a_img = _fetch_a_image(plane_np, elem)
+    pt = np.zeros((FETCH_ROWS, 256))
+    per = 32 // elem                             # K elements a k-step
+    for m in range(5):
+        for ks in range(k_steps):
+            base = m * atoms * 64 * ATOM + (ks // 4) * 64 * ATOM
+            pt[64 * m:64 * m + 64, per * ks:per * ks + per] = \
+                _fetch_desc_read(a_img, base, 64, ks, elem)
+    want_pt = np.zeros((FETCH_ROWS, 256))
+    want_pt[:316] = plane.float().numpy().T
+    np.testing.assert_array_equal(pt, want_pt)
+    c = probes.vpu_input(CPU).numpy().reshape(-1)
+    for _ in range(steps):
+        nxt = np.empty_like(c)
+        for cta in range(1024 // FETCH_N):
+            c8 = c[FETCH_N * cta:FETCH_N * cta + FETCH_N]
+            b_img = _fetch_b_image(c8, elem)
+            oh = np.zeros((FETCH_N, 256))
+            for ks in range(k_steps):
+                oh[:, per * ks:per * ks + per] = _fetch_desc_read(
+                    b_img, (ks // 4) * FETCH_N * ATOM, FETCH_N, ks, elem)
+            np.testing.assert_array_equal(oh, np.eye(256)[c8])
+            d = pt @ oh.T                                  # (320, 8)
+            lane = np.arange(32)
+            frag = [d[lane // 4 + 8 * (e // 2), 2 * (lane % 4) + e % 2]
+                    for e in range(4)]
+            sums = np.stack([frag[0] + frag[2], frag[1] + frag[3]], 1)
+            for o in (4, 8, 16):
+                sums = sums + sums[lane ^ o]
+            sums = sums[:4].reshape(-1).astype(np.int64)   # columns 0..7
+            nxt[FETCH_N * cta:FETCH_N * cta + FETCH_N] = (
+                (sums + (128 * 16 if elem == 1 else 0)) & 255)
+        c = nxt
+    want = probes.vpu_probe_plain(name, probes.vpu_input(CPU), steps, plane)
+    np.testing.assert_array_equal(c.reshape(8, 128), want.numpy())
+
+
+# ---------------------------------------------------------------------------
 # The wrappers and the entry points without a card
 # ---------------------------------------------------------------------------
 
