@@ -34,12 +34,18 @@ calls, after building and checking every kernel those paths run:
      compacted K6(K5(x)) == K3(x); K4 and K6 again on the payload route's
      inputs (1,600 units of 64 KB), with the same two checks; K2, K11,
      K3 and K6 (again, in the same rows), K7's order-0 table build and
-     K7o on the order-0 inputs (6,400 units of 16 KB)
+     K7o on the order-0 inputs (6,400 units of 16 KB); on both paths'
+     inputs the engine's stage kernels (`stage_checks`): K13 on the
+     path's lengths, K10+K8 on K3's rows with the host's literal plan
+     (its library call, one torch.masked_select over the substituted
+     plane, checked equal), K9 on the engine's payload (its library
+     call, one torch.take over a prepared index, checked equal), K12 on
+     the order-0 container's parsed byte payload, K14 on K7's rows
   4. main path (Markov): engine.stage -> encode (the table build on
      the card) -> decode -> fetch_bytes with the launch counters reset
-     before and read after (K1, K11, K3, K7's table build and K7m once
-     each); bit-exact round trip; container size and sha256 equal to the
-     JAX reference's; the host table build's encode (the counts fetched,
+     before and read after (K1, K11, K3, K7's table build, K7m, K10+K8,
+     K9 and K14 once each, K13 twice); bit-exact round trip; container
+     size and sha256 equal to the JAX reference's; the host table build's encode (the counts fetched,
      the native builder, the lengths passed in) counted (K11 never)
      writes it too; the two encodes timed in turns; the container decodes
      through api.decompress; encode and decode GB/s
@@ -58,8 +64,11 @@ calls, after building and checking every kernel those paths run:
      api.decompress reads it; encode and decode GB/s; then api.compress
      with pack_method="pallas" (K5, K6) writes it too
   breakdown: the engine's stages at 100 MB with the device table build,
-     both modes (host clock between synchronisations, minimum of 4), the
-     host build beside it, and the device's idle share over one encode +
+     both modes (host clock between synchronisations, minimum of 4):
+     histogram, K11, canonical tables (K13), K3, the bits fetch with
+     the literal plan and K10+K8 (`engine.compact`), `decode_inputs`
+     (K13, one upload, K9), K7 with its table build, K14; the host
+     build beside it, and the device's idle share over one encode +
      decode (torch.profiler)
   small: 1 MB of the corpus as one block (BASELINE configs 1-2), both
      modes: the device and the host table build each counted and writing
@@ -69,16 +78,20 @@ calls, after building and checking every kernel those paths run:
   8. host bytes: the chunked api.compress / api.decompress (at least two
      chunks, K11 once), host bytes in and out, the reference container,
      timed in turns at 16 MB chunks and at the default `api.CHUNK_BYTES`
-  9. CLI: `python -m mhc_tpu_torch.cli` encode (32 MB segments: a chain
-     of 4 containers equal to mhc_tpu.api.compress_file's), decode (equal
-     to the input), stat; wall seconds of each
-  10. hybrid: hybrid.compress / decompress at host_fraction 0.5, the
+  9. CLI: api.compress_file / decompress_file in this process, counted
+     (the stage kernels launched), then `python -m mhc_tpu_torch.cli`
+     encode (32 MB segments: a chain of 4 containers equal to
+     mhc_tpu.api.compress_file's), decode (equal to the input), stat;
+     wall seconds of each
+  10. hybrid: hybrid.compress / decompress at host_fraction 0.5,
+     counted (K13 and K10+K8 once; K13, K9 and K14 on decode), the
      reference container, bit-exact, wall seconds
   sharded: parallel.pipeline.compress_sharded / decompress_sharded at
      100 MB, each rank a subprocess (`--sharded-rank`, FileStore): one
      NCCL rank (Markov), then two gloo ranks sharing cuda:0 (Markov and
-     order-0); every rank's container is the reference's and round-trips;
-     wall seconds; scaling unmeasured (one card)
+     order-0); every rank's container is the reference's and round-trips,
+     its stage kernels launched; wall seconds; scaling unmeasured (one
+     card)
   11. corrupt containers on the card: a payload bit flip, a truncation
      and a bad magic each raise ValueError, and so does the payload
      route's container with its length index rewritten so that unit 0
@@ -112,9 +125,10 @@ calls, after building and checking every kernel those paths run:
      wall, and the untraced call's wall
   16. profile: `utils.metrics.torch_profile` around two engine.encode +
      decode passes at 100 MB (Markov): the trace file names K1, K11, K3,
-     K7's table build and K7m by their `__global__` names, with each
-     one's device time and how many of its two launches the trace holds
-     (torch.profiler loses a window's first kernels in an aged process)
+     K7's table build, K7m, K13, K10+K8, K9 and K14 by their `__global__`
+     names, with each one's device time and how many of its launches
+     the trace holds (torch.profiler loses a window's first kernels in
+     an aged process)
   17. dryrun: `python -m mhc_tpu_torch.parallel.dryrun --ranks 1` (NCCL
      on cuda:0, the default on a card) and `--ranks 2 --backend gloo`
      (two ranks sharing cuda:0) exit 0
@@ -208,6 +222,14 @@ TC_BF16_OPS_PER_S = 989e12
 SHARDED_LEGS = (("nccl_1_rank", "nccl", 1, "markov"),
                 ("gloo_2_ranks_one_card", "gloo", 2, "markov,huffman"))
 
+# the stage kernels each engine call launches (K14: the 100 MB corpus has
+# literal units in both modes)
+STAGES_ENCODE = {"canonical_tables": "once", "compact_units": "once"}
+STAGES_DECODE = {"canonical_tables": "some", "expand_units": "some",
+                 "literal_rows": "some"}
+STAGES_ROUND_TRIP = {"canonical_tables": 2, "compact_units": "once",
+                     "expand_units": "once", "literal_rows": "once"}
+
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "markov_hist": ("histogram.cu",
@@ -229,6 +251,14 @@ KERNELS = {
                           "mhc_tpu/ops/kernels/decode_pallas.py:845"),
     # K11, the device table build: an XLA stage on the TPU, not Pallas
     "code_lengths": ("huffman.cu", "mhc_tpu/ops/huffman.py:289"),
+    # the engine's stages, XLA stages on the TPU: K13 (canonical tables),
+    # K10+K8 (literal substitution, then compaction), K9/K12 (expansion
+    # of word and of byte payloads), K14 (literal rows; with the
+    # jnp.where of mhc_tpu/engine.py:495 and mhc_tpu/api.py:587)
+    "canonical_tables": ("tables.cu", "mhc_tpu/ops/canonical.py:27"),
+    "compact_units": ("stages.cu", "mhc_tpu/ops/bitpack.py:178, :509"),
+    "expand_units": ("stages.cu", "mhc_tpu/ops/bitpack.py:480, :652"),
+    "literal_rows": ("stages.cu", "mhc_tpu/ops/bitpack.py:221"),
 }
 # P1-P3, the calibration probes: one entry per body, named by its launch
 # counter; dep1_* is P1's one-op chain, the calibration of INT_DEP_S
@@ -621,6 +651,130 @@ def phase_k11_synthetic(torch, dev) -> None:
          cases=seen, max_len=int(got.max()))
 
 
+def expand_check(torch, rows: dict, payload, bounds, W: int,
+                 inputs: str) -> None:
+    """K9 (int32 words) or K12 (uint8 bytes) vs its plain version on a
+    payload and its (R + 1,) host offsets; K9's library call, one
+    torch.take over a prepared index (past a unit's length: a 0 entry
+    appended to the payload), checked equal to K9. K12 has none."""
+    import numpy as np
+    from mhc_tpu_torch.ops import bitpack
+    from mhc_tpu_torch.ops.kernels import stages_cuda
+    dev = payload.device
+    offs = torch.from_numpy(bounds).to(dev)
+    library = None
+    if payload.dtype == torch.int32:
+        ext = torch.cat([payload, payload.new_zeros(1)])
+        iw = torch.arange(W, device=dev)
+        lens = torch.from_numpy(np.diff(bounds)).to(dev)
+        idx = torch.where(iw[None, :] < lens[:, None],
+                          offs[:-1, None] + iw[None, :], payload.numel())
+        library = lambda: torch.take(ext, idx)
+    (got,) = compare(
+        torch, rows, "expand_units",
+        lambda: stages_cuda.expand_units(payload, offs, W),
+        lambda: bitpack.expand_units_plain(payload, offs, W), 10, 2, inputs,
+        bound_bytes=lambda out: nbytes(payload, offs, *out), library=library,
+        more={"layout": "bytes (K12)" if payload.dtype == torch.uint8
+              else "words (K9)",
+              **({} if library else {"library_ms_null_reason":
+                                     "no one PyTorch call packs bytes at "
+                                     "any offset into big-endian words"})})
+    if library:
+        same = torch.equal(library(), got)
+        emit("kernel", check=f"torch.take(payload, index) == expand_units "
+             f"({inputs})", equal=same)
+        if not same:
+            raise AssertionError("K9's library call differs from K9")
+
+
+def stage_checks(torch, rows: dict, st, lengths, inputs: str) -> None:
+    """K13, K10+K8, K9 (K12 too on order-0's parsed container) and K14
+    against their plain versions on a path's inputs, tolerance 0: its
+    tables, its units' K3 rows with the host's literal plan, the
+    engine's payload, and K7's rows. K10+K8's library call, one
+    torch.masked_select over the substituted plane and a prepared mask,
+    checked equal to it; K13 and K14 have none."""
+    import numpy as np
+    from mhc_tpu_torch import container, engine
+    from mhc_tpu_torch.models.entropy import get_model
+    from mhc_tpu_torch.ops import bitpack, canonical
+    from mhc_tpu_torch.ops.kernels import (decode_cuda, encode_cuda,
+                                           stages_cuda, tables_cuda)
+    model = get_model(st.mode)
+    dev = st.units.device
+    L = torch.from_numpy(np.ascontiguousarray(lengths, np.uint8)
+                         .reshape(-1, 256)).to(dev)
+    t = compare(
+        torch, rows, "canonical_tables",
+        lambda: tuple(tables_cuda.canonical_tables(L, 256).values()),
+        lambda: tuple(canonical.canonical_tables_plain(L, 256).values()),
+        10, 3, inputs, bound_bytes=lambda out: nbytes(L, *out),
+        more={"library_ms_null_reason": "no one PyTorch call builds "
+              "canonical code tables"})
+    words, bits = encode_cuda.pack_units(st.units, st.n_valid, t[0], t[1])
+    aligned = container.aligned_payload(model.mode)
+    R, W = words.shape
+    bits_h = bits.cpu().numpy().astype(np.int64)
+    nv = engine.host_n_valid(st.orig_len, st.decode_unit, R)
+    raw = bitpack.literal_unit_mask(bits_h, nv, aligned)
+    wl = (np.where(raw, nv * 8, bits_h) + 31) // 32
+    bounds = np.concatenate([[0], np.cumsum(wl)])
+    offs, lit = engine.upload(dev, bounds, raw)
+    args = (words, st.units, st.n_valid, offs, lit, int(bounds[-1]))
+    sub = torch.where(lit.bool()[:, None],
+                      bitpack.literal_words(st.units, st.n_valid, W), words)
+    mask = (torch.arange(W, device=dev)[None, :]
+            < torch.from_numpy(wl).to(dev)[:, None])
+    read = 4 * int(wl[~raw].sum()) + int(nv[raw].sum())
+    (payload,) = compare(
+        torch, rows, "compact_units",
+        lambda: stages_cuda.compact_units(*args),
+        lambda: bitpack.compact_units_plain(*args), 10, 2, inputs,
+        bound_bytes=lambda out: read + nbytes(st.n_valid, offs, lit, *out),
+        library=lambda: torch.masked_select(sub, mask),
+        more={"literal_units": int(raw.sum())})
+    same = torch.equal(torch.masked_select(sub, mask), payload)
+    emit("kernel", check="torch.masked_select(substituted plane, mask) == "
+         f"compact_units ({inputs})", equal=same)
+    if not same:
+        raise AssertionError("K10+K8's library call differs from K10+K8")
+    del sub, mask, words, args
+    enc = engine.encode(st, lengths=lengths)
+    if not torch.equal(enc.payload, payload):
+        raise AssertionError(f"{inputs}: engine.encode's payload is not "
+                             "compact_units'")
+    w, n_dec, raw, td, lit_rows = engine._decode_inputs(enc)
+    expand_check(torch, rows, enc.payload,
+                 np.concatenate([[0], np.cumsum((enc.bit_lens + 31) // 32)]),
+                 w.shape[1], inputs)
+    if not enc.aligned:
+        meta = container.parse_container(engine.assemble_container(enc,
+                                                                   None))
+        lens = meta.byte_lengths.astype(np.int64)
+        parsed = torch.from_numpy(np.frombuffer(
+            engine.fetch_payload(enc), np.uint8).copy()).to(dev)
+        expand_check(torch, rows, parsed,
+                     np.concatenate([[0], np.cumsum(lens)]),
+                     int(-(-lens.max() // 4)) + 1, f"{inputs}_parsed")
+        del parsed
+    du = enc.decode_unit
+    out = decode_cuda.decode_units(
+        w, n_dec, td["lim"], td["base"], td["first_code"],
+        td["sorted_syms"], n_out=du, markov=model.markov)
+    n_lit = lit_rows.numel()
+    moved = n_lit * (min(w.shape[1], du // 4) * 4 + du)
+    kern_out, plain_out = out.clone(), out.clone()
+    compare(torch, rows, "literal_rows",
+            lambda: stages_cuda.literal_rows(kern_out, w, lit_rows),
+            lambda: bitpack.literal_rows_plain(plain_out, w, lit_rows),
+            10, 2, inputs,
+            bound_bytes=lambda o: moved + nbytes(lit_rows),
+            more={"literal_rows": n_lit, "library_ms_null_reason":
+                  "no one PyTorch call writes big-endian word bytes into "
+                  "chosen rows"})
+
+
 def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
     """K1, K3, K5, K4, K6 and K7m against their plain versions on the
     Markov main path's inputs."""
@@ -667,6 +821,7 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
     del idx
     cl_packers_checks(torch, rows, cl, fused, "markov")
     del cl, fused
+    stage_checks(torch, rows, st, lengths, "markov")
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
     du = enc.decode_unit
@@ -730,6 +885,8 @@ def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
     cl = encode_cuda.lookup_cl(u, nv, *tab)
     cl_packers_checks(torch, rows, cl, fused, "order0", dense=False)
     del cl, fused
+    torch.cuda.empty_cache()
+    stage_checks(torch, rows, st, lengths, "order0")
     torch.cuda.empty_cache()
     enc = engine.encode(st, lengths=lengths)
     words, n_dec, _, t = engine.decode_inputs(enc)
@@ -899,8 +1056,8 @@ def phase_breakdown(torch, data: bytes, dev) -> None:
     encode + decode (torch.profiler)."""
     from mhc_tpu_torch import container, engine
     from mhc_tpu_torch.models.entropy import get_model
-    from mhc_tpu_torch.ops import bitpack
-    from mhc_tpu_torch.ops.kernels import decode_cuda, encode_cuda
+    from mhc_tpu_torch.ops.kernels import (decode_cuda, encode_cuda,
+                                           stages_cuda)
     for mode in ("markov", "huffman"):
         torch.cuda.empty_cache()
         model = get_model(mode)
@@ -924,21 +1081,21 @@ def phase_breakdown(torch, data: bytes, dev) -> None:
                       lambda: model.tables_from_lengths(lengths, dev))
             words, bits = stage("k3_pack", lambda: encode_cuda.pack_units(
                 u, nv, t["codes"], t["lengths"]))
-            words, bits = stage(
-                "literal_substitution", lambda: bitpack.substitute_raw_units(
-                    words, bits, u, nv, aligned))
-            stage("bits_fetch_and_compaction",
-                  lambda: bitpack.device_compact_words(words, torch.from_numpy(
-                      (bits.cpu().numpy().astype("int64") + 31) // 32)
-                      .to(dev)))
+            # the bits fetch, the literal plan and K10+K8, one stage:
+            # literal substitution and compaction are one kernel
+            stage("bits_fetch_literals_and_compaction",
+                  lambda: engine.compact(st, words, bits, aligned))
             enc = stage("encode_total", lambda: engine.encode(st))
             stage("encode_total_host_build", lambda: host_build_encode(st))
-            w, n_dec, raw, td = stage("decode_inputs",
-                                      lambda: engine.decode_inputs(enc))
-            stage("k7_with_table_build", lambda: decode_cuda.decode_units(
-                w, n_dec, td["lim"], td["base"], td["first_code"],
-                td["sorted_syms"], n_out=enc.decode_unit,
-                markov=model.markov))
+            w, n_dec, raw, td, lit = stage(
+                "decode_inputs", lambda: engine._decode_inputs(enc))
+            out = stage("k7_with_table_build",
+                        lambda: decode_cuda.decode_units(
+                            w, n_dec, td["lim"], td["base"], td["first_code"],
+                            td["sorted_syms"], n_out=enc.decode_unit,
+                            markov=model.markov))
+            stage("literal_rows",
+                  lambda: stages_cuda.literal_rows(out, w, lit))
             stage("decode_total", lambda: engine.decode(enc))
         idle = device_idle_share(
             torch, lambda: engine.decode(engine.encode(st)))
@@ -989,7 +1146,11 @@ def phase_payload_route(torch, data: bytes, dev) -> bytes:
     require_launches("payload_route", launches,
                      {"lookup_cl": "once", "bubble_pack": "once",
                       "pack_units": "none", "pack_cl": "none",
-                      "decode_lut": "once", "decode_units": "once"})
+                      "decode_lut": "once", "decode_units": "once",
+                      # no literal units, and the bubble stream goes
+                      # straight to the payload: no K10+K8, no K14
+                      "canonical_tables": 2, "compact_units": "none",
+                      "expand_units": "once", "literal_rows": "none"})
     if engine.fetch_bytes(enc, out) != data:
         raise AssertionError("payload_route: round trip is not bit-exact")
     del out
@@ -1015,7 +1176,8 @@ def phase_order0_pallas(torch, data: bytes, dev) -> None:
     require_launches("order0_pallas", launches,
                      {"order0_hist": "some", "lookup_cl": "some",
                       "bubble_pack": "some", "pack_units": "none",
-                      "markov_hist": "none"})
+                      "markov_hist": "none", "canonical_tables": "some",
+                      "compact_units": "some"})
     emit("order0_pallas", n_bytes=len(data), launches=launches,
          container_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest())
     check_container("order0_pallas", blob, REF_ORDER0_100MB_LEN,
@@ -1047,13 +1209,16 @@ def phase_host_bytes(torch, data: bytes, dev) -> None:
         torch, lambda: api.compress(data, device=dev))
     require_launches("host_bytes", launches,
                      {"markov_hist": "some", "code_lengths": "once",
-                      "pack_units": "some"})
+                      "pack_units": "some", "canonical_tables": "some",
+                      "compact_units": "some"})
     check_container("host_bytes", blob, REF_100MB_LEN, REF_100MB_SHA256)
     out, dec_launches = run_counted(
         torch, lambda: api.decompress(blob, device=dev))
     if out != data:
         raise AssertionError("host_bytes: api.decompress did not return "
                              "the input")
+    require_launches("host_bytes decompress", dec_launches,
+                     {"decode_units": "some", **STAGES_DECODE})
     del out
     secs = {}
     try:
@@ -1092,7 +1257,8 @@ def phase_small(torch, dev) -> None:
         path = f"small_{mode}"
         st = engine.stage(data, mode=mode, block_size=1 << 20, device=dev)
         enc, launches = run_counted(torch, lambda: engine.encode(st))
-        require_launches(path, launches, {"code_lengths": "once"})
+        require_launches(path, launches, {"code_lengths": "once",
+                                          **STAGES_ENCODE})
         check_container(path, engine.assemble_container(enc, crc),
                         ref_len, ref_sha)
         host_launches = host_route(torch, st, path, crc, ref_len, ref_sha)
@@ -1212,17 +1378,41 @@ def phase_sharded(torch, corpus_path: str) -> None:
                         f"sharded {leg} rank {res['rank']} {mode}: "
                         f"container {got['sha256']} (reference "
                         f"{refs[mode]}), round trip {got['round_trip']}")
+                require_launches(
+                    f"sharded {leg} rank {res['rank']} {mode}",
+                    {k: got["launches"].get(k, 0) for k in KERNELS},
+                    {**STAGES_DECODE, "compact_units": "some"})
         legs[leg] = {"backend": backend, "ranks": world,
                      "wall_s_all_processes": wall, "per_rank": ranks}
     emit("sharded", n_bytes=CORPUS_BYTES, legs=legs,
          scaling="unmeasured (1 card)")
 
 
-def phase_cli(corpus_path: str, data: bytes) -> None:
-    """The CLI as a user runs it, in subprocesses."""
+def phase_cli(torch, corpus_path: str, data: bytes) -> None:
+    """The file functions the CLI calls, in this process and counted
+    (api.compress_file / decompress_file at 32 MB segments: the stage
+    kernels launched), then the CLI as a user runs it, in
+    subprocesses."""
+    from mhc_tpu_torch import api
     out_dir = os.path.dirname(corpus_path)
     mhc = os.path.join(out_dir, "corpus_seg32m.mhc")
     back = os.path.join(out_dir, "corpus_back.bin")
+    _, file_enc = run_counted(torch, lambda: api.compress_file(
+        corpus_path, mhc, segment_size=32 << 20, device="cuda:0"))
+    with open(mhc, "rb") as f:
+        check_container("files", f.read(), REF_100MB_SEG32M_LEN,
+                        REF_100MB_SEG32M_SHA256)
+    require_launches("files compress", file_enc,
+                     {"canonical_tables": "some", "compact_units": "some"})
+    _, file_dec = run_counted(torch, lambda: api.decompress_file(
+        mhc, back, device="cuda:0"))
+    with open(back, "rb") as f:
+        if f.read() != data:
+            raise AssertionError("files: decompress_file did not return "
+                                 "the input")
+    require_launches("files decompress", file_dec, STAGES_DECODE)
+    for p in (mhc, back):
+        os.remove(p)
 
     def cli(*args):
         t0 = time.perf_counter()
@@ -1249,23 +1439,32 @@ def phase_cli(corpus_path: str, data: bytes) -> None:
     emit("cli", encode_report=json.loads(enc_out), encode_wall_s=enc_s,
          decode_report=json.loads(dec_out), decode_wall_s=dec_s,
          stat=json.loads(stat_out), stat_wall_s=stat_s,
-         container_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest())
+         container_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest(),
+         file_launches={"compress": file_enc, "decompress": file_dec})
     for p in (mhc, back):
         os.remove(p)
 
 
 def phase_hybrid(torch, data: bytes, dev) -> None:
+    """hybrid.compress / decompress at host_fraction 0.5, counted: the
+    device's share through the engine's stage kernels."""
     from mhc_tpu_torch import hybrid
     torch.cuda.empty_cache()
-    blob, c = wall_s(torch, lambda: hybrid.compress(
-        data, host_fraction=0.5, device=dev))
+    (blob, c), enc_launches = run_counted(torch, lambda: wall_s(
+        torch, lambda: hybrid.compress(data, host_fraction=0.5,
+                                       device=dev)))
     check_container("hybrid", blob, REF_100MB_LEN, REF_100MB_SHA256)
-    out, d = wall_s(torch, lambda: hybrid.decompress(
-        blob, host_fraction=0.5, device=dev))
+    require_launches("hybrid compress", enc_launches,
+                     {"canonical_tables": "once", "compact_units": "once"})
+    (out, d), dec_launches = run_counted(torch, lambda: wall_s(
+        torch, lambda: hybrid.decompress(blob, host_fraction=0.5,
+                                         device=dev)))
     if out != data:
         raise AssertionError("hybrid: decompress did not return the input")
+    require_launches("hybrid decompress", dec_launches, STAGES_DECODE)
     emit("hybrid", n_bytes=len(data), host_fraction=0.5, compress_s=c,
-         decompress_s=d, container_bytes=len(blob))
+         decompress_s=d, container_bytes=len(blob),
+         launches={"compress": enc_launches, "decompress": dec_launches})
 
 
 def claim_whole_payload(blob: bytes) -> bytes:
@@ -1553,10 +1752,14 @@ def phase_serve(torch, data: bytes, dev) -> None:
             if mode == "markov":
                 require_launches("serve /compress (Markov)", enc, {
                     "markov_hist": n_chunks, "pack_units": n_chunks,
-                    "code_lengths": 1, "decode_units": 0})
+                    "code_lengths": 1, "decode_units": 0,
+                    "canonical_tables": n_chunks,
+                    "compact_units": n_chunks, "expand_units": 0})
                 require_launches("serve /decompress (Markov)", dec, {
                     "decode_units": n_chunks, "decode_lut": n_chunks,
-                    "markov_hist": 0, "pack_units": 0, "code_lengths": 0})
+                    "markov_hist": 0, "pack_units": 0, "code_lengths": 0,
+                    "canonical_tables": n_chunks, "compact_units": 0,
+                    "expand_units": n_chunks, "literal_rows": "some"})
             requests[f"compress_100mb_{mode}"] = {
                 "client_wall_s": c_wall, "x_mhc_seconds": c_s,
                 "launches": enc, "container_bytes": len(blob)}
@@ -1761,8 +1964,9 @@ def phase_profile(torch, data: bytes, dev, age_s: float) -> None:
     100 MB Markov corpus, run twice in one window: the trace file is
     written, and it names each kernel of the main path by its
     `__global__` name, with each one's device time and how many of its
-    two launches the trace holds. The first pass is there because
-    torch.profiler on this machine loses the first kernels of a window,
+    launches (two; K13's four) the trace holds. The first pass is there
+    because torch.profiler on this machine loses the first kernels of a
+    window,
     more of them the longer the process has run (PERF.md §7); `age_s`,
     the process's age at the window, is reported beside the count."""
     import glob
@@ -1789,13 +1993,18 @@ def phase_profile(torch, data: bytes, dev, age_s: float) -> None:
             "code_lengths": "code_lengths_kernel",
             "pack_units": "pack_units_kernel",
             "decode_lut": "decode_lut_kernel",
-            "decode_units": "decode_units_kernel"}
+            "decode_units": "decode_units_kernel",
+            "canonical_tables": "canonical_tables_kernel",
+            "compact_units": "compact_units_kernel",
+            "expand_units": "expand_units_kernel",
+            "literal_rows": "literal_rows_kernel"}
     found = {}
     for name, fn in want.items():
         hits = [e for e in kernels if fn in e.get("name", "")]
         if not hits:
             raise AssertionError(f"profile: the trace does not name {fn}")
-        found[name] = {"of_2_launches": len(hits),
+        found[name] = {"in_trace": len(hits),
+                       "launched": 4 if name == "canonical_tables" else 2,
                        "device_us": [e.get("dur") for e in hits]}
     emit("profile", trace_file=os.path.relpath(path, REPO),
          trace_bytes=os.path.getsize(path), n_events=len(events),
@@ -2120,21 +2329,22 @@ def run_phases(torch, plains, plains_path: str, started: float) -> dict:
     markov_blob, launches = round_trip(
         torch, data, "markov", dev, "main_path",
         {"markov_hist": "once", "code_lengths": "once", "pack_units": "once",
-         "decode_lut": "once", "decode_units": "once"}, REF_100MB_LEN,
-        REF_100MB_SHA256)
+         "decode_lut": "once", "decode_units": "once", **STAGES_ROUND_TRIP},
+        REF_100MB_LEN, REF_100MB_SHA256)
     dense_launches = phase_split_path(
         torch, data, dev, "dense",
-        {"lookup_cl": "once", "pack_cl": "once", "pack_units": "none"})
+        {"lookup_cl": "once", "pack_cl": "once", "pack_units": "none",
+         **STAGES_ENCODE})
     pallas_launches = phase_split_path(
         torch, data, dev, "pallas",
         {"lookup_cl": "once", "bubble_pack": "once", "pack_units": "none",
-         "pack_cl": "none"})
+         "pack_cl": "none", **STAGES_ENCODE})
     du64k_blob = phase_payload_route(torch, data, dev)
     order0_blob, order0_launches = round_trip(
         torch, data, "huffman", dev, "order0_path",
         {"order0_hist": "some", "code_lengths": "once", "pack_units": "some",
          "decode_lut_order0": "some", "decode_units_order0": "some",
-         "markov_hist": "none"},
+         "markov_hist": "none", **STAGES_ROUND_TRIP},
         REF_ORDER0_100MB_LEN, REF_ORDER0_100MB_SHA256)
     phase_order0_pallas(torch, data, dev)
     phase_breakdown(torch, data, dev)
@@ -2143,7 +2353,7 @@ def run_phases(torch, plains, plains_path: str, started: float) -> dict:
     corpus_path = os.path.join(_build.BUILD_DIR, "corpus_100mb.bin")
     with open(corpus_path, "wb") as f:
         f.write(data)
-    phase_cli(corpus_path, data)
+    phase_cli(torch, corpus_path, data)
     phase_hybrid(torch, data, dev)
     phase_sharded(torch, corpus_path)
     phase_corrupt(torch, markov_blob, data, du64k_blob, dev)
@@ -2189,7 +2399,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from mhc_tpu_torch.ops.kernels import _build
     smi = phase_device(torch)
-    phase_build(("histogram", "encode", "decode", "huffman", "probes"))
+    phase_build(("histogram", "encode", "decode", "huffman", "tables",
+                 "stages", "probes"))
     plains_path = os.path.join(_build.BUILD_DIR, "probe_plains.npz")
     plains = start_reference_plains(plains_path)
     try:

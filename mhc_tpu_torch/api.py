@@ -13,7 +13,7 @@ through the device-resident engine:
               container
   decompress: container -> `decode_range` over all units: per chunk,
               payload copied to the device, expansion, decode, literal
-              overwrite (engine.decode), the bytes copied back -> crc
+              rows (engine.decode), the bytes copied back -> crc
               check
 
 On a CUDA device every copy goes through a pinned host buffer on a side
@@ -36,7 +36,7 @@ an untraced one). Compress: `blockify` (filling the staging buffers),
 (`engine.encode` of a chunk), `d2h` (the payload's copy, then its cut
 to the container layout) and `container`; decompress: `h2d`, `decode`
 (`engine.decode` of a chunk: its tables, expansion, K7 and literal
-overwrite, so the reference's decode-side `tables` and `expand` fall in
+rows, so the reference's decode-side `tables` and `expand` fall in
 it), `d2h` and `crc32`. The reference's `compact` and `marshal` have no
 stage of their own here. Unset, no phase synchronises anything.
 

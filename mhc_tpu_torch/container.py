@@ -382,7 +382,7 @@ def build_container(mode: int, orig_len: int, block_size: int,
     aligned = aligned_payload(mode)
     if decode_unit is not None and decode_unit != block_size:
         # FLAG_RAW_UNITS: the encoders substitute literal streams for
-        # incompressible units (bitpack.substitute_raw_units); readers
+        # incompressible units (engine.compact: K10+K8); readers
         # apply the length-based literal rule only when this bit is set,
         # so pre-round-5 containers keep their original semantics.
         flags |= FLAG_SUBSTREAMS | FLAG_PACKED_INDEX | FLAG_RAW_UNITS

@@ -10,8 +10,10 @@ GPU does not need (the host-bytes API in `api.py` chunks for its copies).
 
 Paths, Markov and order-0 alike:
   encode: histogram (K1 Markov, K2 order-0) -> table build ->
-          canonical tables -> lookup+pack -> literal substitution ->
-          compaction, where the table build is
+          canonical tables (K13) -> lookup+pack -> the bits fetched (the
+          encode's one sync) and the literal rule applied on the host ->
+          literal substitution and compaction (K10+K8), where the table
+          build is
             on a CUDA card: K11 on the counts where they lie, none
               fetched; the lengths come back to the host with the bit
               lengths the encode fetches anyway;
@@ -24,8 +26,9 @@ Paths, Markov and order-0 alike:
               by `bitpack.compact_bubbles`; for Markov with decode_unit
               == block_size (no literal units) the bubble stream goes
               straight to the payload (`bitpack.bubbles_to_payload`)
-  decode: expansion -> decode (K7m Markov, K7o order-0; literal units
-          skipped) -> literal overwrite
+  decode: canonical tables (K13) -> expansion (K9 words, K12 the bytes of
+          an unaligned container) -> decode (K7m Markov, K7o order-0;
+          literal units skipped) -> literal rows (K14)
 All three pack methods write the same bytes. The engine payload is
 word-aligned in both modes, as in the reference; `fetch_payload` cuts it
 to the container's byte-aligned order-0 layout on the host.
@@ -45,7 +48,7 @@ from .config import resolve_device
 from .models.entropy import get_model
 from .ops import bitpack
 from .ops.huffman import MAX_CODE_LEN
-from .ops.kernels import decode_cuda, encode_cuda
+from .ops.kernels import decode_cuda, encode_cuda, stages_cuda
 
 # the reference's `pack_method` values the port carries
 PACK_METHODS = ("fused", "dense", "pallas")
@@ -64,7 +67,8 @@ class Staged:
     orig_len: int
     n_units: int
     units: torch.Tensor      # (n_units, decode_unit) uint8, zero-padded
-    n_valid: torch.Tensor    # (n_units,) int32
+    # (n_units,) int32: host_n_valid(orig_len, decode_unit, n_units)
+    n_valid: torch.Tensor
 
 
 @dataclass
@@ -124,9 +128,10 @@ def check_pack_method(pack_method: str | None) -> str:
 def encode(st: Staged, lengths=None,
            pack_method: str | None = None) -> EncodeResult:
     """Histogram -> table build (`EntropyModel.lengths_for`) ->
-    lookup+pack -> literal substitution -> dense word-aligned payload.
-    `lengths` (host uint8, or a tensor) overrides the histogram and table
-    build; `pack_method` is "fused" (None, K3), "dense" (K5 then K4) or
+    canonical tables -> lookup+pack -> literal substitution and
+    compaction (`compact`) -> dense word-aligned payload. `lengths`
+    (host uint8, or a tensor) overrides the histogram and table build;
+    `pack_method` is "fused" (None, K3), "dense" (K5 then K4) or
     "pallas" (K5 then K6)."""
     pack_method = check_pack_method(pack_method)
     model = get_model(st.mode)
@@ -137,8 +142,8 @@ def encode(st: Staged, lengths=None,
     lengths_host = _start_fetch(lengths)
     tab = (tables["codes"], tables["lengths"])
     aligned = container.aligned_payload(model.mode)
-    literals = st.decode_unit != st.block_size   # substream layout
-    if pack_method == "pallas" and aligned and not literals:
+    if (pack_method == "pallas" and aligned
+            and st.decode_unit == st.block_size):
         # the reference's pack_blocks_to_payload: the bubble stream goes
         # straight to the payload, with no words plane
         bubbles = encode_cuda.bubble_pack(
@@ -148,13 +153,8 @@ def encode(st: Staged, lengths=None,
         # a copy of the streams, so the result does not hold the padding
         payload = padded[: int(((bit_lens + 31) // 32).sum())].clone()
     else:
-        words, bits = _pack(st, tab, pack_method)
-        if literals:
-            words, bits = bitpack.substitute_raw_units(
-                words, bits, st.units, st.n_valid, aligned)
-        bit_lens = bits.cpu().numpy().astype(np.int64)
-        word_lens = torch.from_numpy((bit_lens + 31) // 32).to(dev)
-        payload = bitpack.device_compact_words(words, word_lens)
+        payload, bit_lens = compact(st, *_pack(st, tab, pack_method),
+                                    aligned)
     return EncodeResult(
         mode=st.mode, block_size=st.block_size, decode_unit=st.decode_unit,
         orig_len=st.orig_len, n_units=st.n_units,
@@ -162,6 +162,27 @@ def encode(st: Staged, lengths=None,
         lengths=lengths_host.numpy(),
         byte_lens=container.stream_byte_lens(bit_lens, model.mode),
         bit_lens=bit_lens, payload=payload, aligned=aligned)
+
+
+def compact(st: Staged, words: torch.Tensor, bits: torch.Tensor,
+            aligned: bool):
+    """The packed rows of `st` -> (dense word-aligned payload, host int64
+    bit lengths): the bits fetched (the encode's one sync), the literal
+    rule applied to them on the host where the units are substreams of
+    a block (`bitpack.literal_unit_mask`: a literal's bits are
+    n_valid * 8), the word offsets and literal flags uploaded in one
+    copy, then one launch of K10+K8 (`stages_cuda.compact_units`)."""
+    bits_host = bits.cpu().numpy().astype(np.int64)
+    nv = host_n_valid(st.orig_len, st.decode_unit, st.n_units)
+    raw = (bitpack.literal_unit_mask(bits_host, nv, aligned)
+           if st.decode_unit != st.block_size
+           else np.zeros(st.n_units, bool))
+    bit_lens = np.where(raw, nv * 8, bits_host)
+    bounds = _bounds((bit_lens + 31) // 32)
+    offsets, literal = upload(words.device, bounds, raw)
+    payload = stages_cuda.compact_units(words, st.units, st.n_valid,
+                                        offsets, literal, int(bounds[-1]))
+    return payload, bit_lens
 
 
 def _start_fetch(lengths) -> torch.Tensor:
@@ -189,10 +210,35 @@ def _pack(st: Staged, tab, pack_method: str):
         *bubbles, bitpack.words_for_block(st.decode_unit)), bubbles[3])
 
 
-def _offsets(lens: np.ndarray) -> np.ndarray:
-    out = np.zeros(len(lens), np.int64)
-    np.cumsum(lens[:-1], out=out[1:])
+def host_n_valid(orig_len: int, du: int, n_units: int) -> np.ndarray:
+    """(n_units,) int64 valid bytes of each unit of `orig_len` bytes cut
+    into `du`-byte units: du, the rest in the last, 0 in units past the
+    end (a sharded rank's share of the rows)."""
+    return np.clip(orig_len - np.arange(n_units, dtype=np.int64) * du, 0,
+                   du)
+
+
+def _bounds(lens: np.ndarray) -> np.ndarray:
+    """(R + 1,) int64 offsets of R lengths laid back to back, the total
+    last."""
+    out = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=out[1:])
     return out
+
+
+def upload(dev, *arrays: np.ndarray) -> list:
+    """Host numpy arrays -> tensors of their dtypes on `dev` (bool as
+    uint8), through one copy: the arrays' bytes at 8-byte aligned
+    offsets of one buffer, each tensor a view of it."""
+    arrays = [np.ascontiguousarray(a.view(np.uint8) if a.dtype == bool
+                                   else a) for a in arrays]
+    starts = _bounds([-(-a.nbytes // 8) * 8 for a in arrays])
+    buf = np.zeros(int(starts[-1]), np.uint8)
+    for a, s in zip(arrays, starts):
+        buf[s: s + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev_buf = torch.from_numpy(buf).to(dev)
+    return [dev_buf[s: s + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .reshape(a.shape) for a, s in zip(arrays, starts)]
 
 
 def check_unit_lengths(byte_lens: np.ndarray, du: int, aligned: bool,
@@ -226,31 +272,31 @@ def decode_inputs(enc: EncodeResult):
     n_dec (R,) int32 symbols to decode — 0 for literal units — host
     literal mask (R,) bool, canonical tables). W is at most
     words_for_block(decode_unit) + 1: a longer unit raises ValueError."""
+    return _decode_inputs(enc)[:4]
+
+
+def _decode_inputs(enc: EncodeResult):
+    """decode_inputs, and the (n,) int64 indices of the literal rows on
+    the payload's device (K14's rows). The host plans the units (their
+    lengths checked, their offsets, the literal rule) and uploads the
+    code lengths and the plan in one copy; K13 and K9 follow."""
     model = get_model(enc.mode)
     dev = enc.payload.device
     du = enc.decode_unit
     R = enc.n_units
     byte_lens = np.asarray(enc.byte_lens, np.int64)
     check_unit_lengths(byte_lens, du, enc.aligned, enc.orig_len)
-    tables = model.tables_from_lengths(enc.lengths, dev)
     if enc.bit_lens is None and not enc.aligned:
         # parsed unaligned container: byte-granular expansion (K12)
+        lens = byte_lens
         W = int(-(-byte_lens.max() // 4)) + 1 if R else 1
-        words = bitpack.device_expand_words(
-            enc.payload, torch.from_numpy(_offsets(byte_lens)).to(dev),
-            torch.from_numpy(byte_lens).to(dev), W)
     else:
         # word-aligned payload: an engine result knows each unit's words
         # from its bits; a parsed aligned container stores words * 4
-        word_lens = ((enc.bit_lens + 31) // 32 if enc.bit_lens is not None
-                     else byte_lens // 4).astype(np.int64)
-        W = int(word_lens.max()) + 1 if R else 1
-        words = bitpack.device_expand_words_u32(
-            enc.payload, torch.from_numpy(_offsets(word_lens)).to(dev),
-            torch.from_numpy(word_lens).to(dev), W)
-    nv = np.full(R, du, np.int64)
-    if R:
-        nv[-1] = enc.orig_len - (R - 1) * du
+        lens = ((enc.bit_lens + 31) // 32 if enc.bit_lens is not None
+                else byte_lens // 4).astype(np.int64)
+        W = int(lens.max()) + 1 if R else 1
+    nv = host_n_valid(enc.orig_len, du, R)
     raw = np.zeros(R, bool)
     if enc.raw_units and du != enc.block_size:
         # literal detection follows the CONTAINER layout (the rule the
@@ -258,24 +304,27 @@ def decode_inputs(enc: EncodeResult):
         # an order-0 unit whose coded bytes fall short of its length can
         # still round up to the literal's word count
         raw = bitpack.raw_unit_mask(byte_lens, nv, enc.aligned)
-    n_dec = torch.from_numpy(np.where(raw, 0, nv).astype(np.int32)).to(dev)
-    return words, n_dec, raw, tables
+    lengths, offsets, n_dec, rows = upload(
+        dev, np.asarray(enc.lengths, np.uint8), _bounds(lens),
+        np.where(raw, 0, nv).astype(np.int32),
+        np.flatnonzero(raw).astype(np.int64))
+    tables = model.tables_from_lengths(lengths, dev)
+    words = stages_cuda.expand_units(enc.payload, offsets, W)
+    return words, n_dec, raw, tables, rows
 
 
 def decode(enc: EncodeResult) -> torch.Tensor:
-    """Expansion -> decode (K7m or K7o, literal units skipped) -> literal
-    overwrite. Returns the
-    (n_units, decode_unit) uint8 rows on the payload's device, zero past
-    each unit's length (fetch_bytes trims)."""
-    du = enc.decode_unit
-    words, n_dec, raw, tables = decode_inputs(enc)
+    """Tables and expansion -> decode (K7m or K7o, literal units
+    skipped) -> literal rows (K14). Returns the (n_units, decode_unit)
+    uint8 rows on the payload's device, zero past each unit's length
+    (fetch_bytes trims)."""
+    words, n_dec, raw, tables, rows = _decode_inputs(enc)
     out = decode_cuda.decode_units(
         words, n_dec, tables["lim"], tables["base"], tables["first_code"],
-        tables["sorted_syms"], n_out=du, markov=get_model(enc.mode).markov)
+        tables["sorted_syms"], n_out=enc.decode_unit,
+        markov=get_model(enc.mode).markov)
     if raw.any():
-        raw_d = torch.from_numpy(raw).to(words.device)
-        out = torch.where(raw_d[:, None],
-                          bitpack.words_to_unit_bytes(words, du), out)
+        stages_cuda.literal_rows(out, words, rows)
     return out
 
 
@@ -296,7 +345,7 @@ def payload_bytes(enc: EncodeResult, be: np.ndarray):
     if enc.aligned:
         return be
     mv = memoryview(be)
-    starts = 4 * _offsets((enc.bit_lens + 31) // 32)
+    starts = 4 * _bounds((enc.bit_lens + 31) // 32)[:-1]
     return b"".join(mv[s: s + n] for s, n in
                     zip(starts.tolist(), enc.byte_lens.tolist()))
 

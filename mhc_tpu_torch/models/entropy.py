@@ -3,9 +3,10 @@
 Counterpart of `mhc_tpu/models/entropy.py`. A model owns the statistics
 pass over a unit batch and the shape of its code tables; tables use the
 unified [prev, cur] layout so the kernels are mode-agnostic. Order-0
-repeats its single table across the 256 context rows, materialised:
-the kernels read their tables through raw pointers, where a stride-0
-view would read row 0's neighbours as garbage.
+repeats its single table across the 256 context rows, materialised (K13
+writes them from its grid): the kernels read their tables through raw
+pointers, where a stride-0 view would read row 0's neighbours as
+garbage.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from .. import container
-from ..ops import canonical, histogram, huffman
+from ..ops import histogram, huffman
+from ..ops.kernels import tables_cuda
 
 
 @dataclass(frozen=True)
@@ -54,15 +56,16 @@ class EntropyModel:
 
     def tables_from_lengths(self, lengths, device) -> dict:
         """Full encode+decode table set on `device`, (256, ...) layout,
-        every table contiguous. `lengths` is host (numpy) or a tensor,
-        taken where it lies when that is `device`."""
+        every table contiguous. `lengths` (uint8 code lengths) is host
+        (numpy) or a tensor, taken where it lies when that is `device`.
+        K13 on a card, its plain version elsewhere
+        (`tables_cuda.canonical_tables`); order-0's one row of lengths
+        gives its tables on all 256 rows."""
         if not torch.is_tensor(lengths):
-            lengths = torch.from_numpy(np.asarray(lengths, np.int64))
-        t = canonical.canonical_codes(lengths.to(device, torch.int64))
-        if self.markov:
-            return t
-        return {k: v.expand(256, v.shape[-1]).contiguous()
-                for k, v in t.items()}
+            lengths = torch.from_numpy(np.ascontiguousarray(lengths,
+                                                            np.uint8))
+        lengths = lengths.to(device, torch.uint8).reshape(-1, 256)
+        return tables_cuda.canonical_tables(lengths.contiguous(), 256)
 
 
 def tables_from_numpy(tables_np: dict, device) -> dict:

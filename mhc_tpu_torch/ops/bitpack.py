@@ -5,8 +5,12 @@ that the main paths run: the worst-case stream width, literal units, the
 dense aligned payload's compaction and expansion, the two compactions of
 K6's bubble stream (`compact_bubbles`, `bubbles_to_payload`, from
 `mhc_tpu/ops/kernels/encode_pallas.py`), and the byte-granular expansion
-of an unaligned container payload. The kernels themselves live in
-`ops/kernels/`.
+of an unaligned container payload. Three of these stages are kernels on a
+card (`ops/kernels/stages_cuda.py`, `csrc/stages.cu`), and their plain
+versions live here: `compact_units_plain` (K10+K8, literal substitution
+and compaction), `expand_units_plain` (K9/K12) and `literal_rows_plain`
+(K14). The bubble compactions and the byte <-> word conversions stay
+plain torch.
 
 Words are kept as torch.int32 bit patterns: torch's uint32 lacks shifts
 and many CPU ops. Bit order is MSB-first within each 32-bit word, and
@@ -55,6 +59,24 @@ def be_bytes_to_words(b: torch.Tensor) -> torch.Tensor:
 # lengths reach the layout size of the unit's bytes iff it is a literal.
 # ---------------------------------------------------------------------------
 
+def literal_words(units: torch.Tensor, n_valid: torch.Tensor,
+                  W: int) -> torch.Tensor:
+    """(R, du) uint8 units, (R,) n_valid -> (R, W) int32: each unit's
+    bytes past n_valid zeroed, big-endian word-packed, zero past du / 4
+    words."""
+    R, du = units.shape
+    if W < du // 4:
+        raise ValueError(f"stream width {W} cannot hold a {du}-byte "
+                         "literal unit")
+    pos = torch.arange(du, device=units.device)
+    masked = torch.where(pos[None, :] < n_valid.long()[:, None], units,
+                         torch.zeros((), dtype=torch.uint8,
+                                     device=units.device))
+    uw = torch.zeros((R, W), dtype=torch.int32, device=units.device)
+    uw[:, : du // 4] = _be_words(masked)
+    return uw
+
+
 def substitute_raw_units(words: torch.Tensor, bits: torch.Tensor,
                          units: torch.Tensor, n_valid: torch.Tensor,
                          aligned: bool):
@@ -62,26 +84,29 @@ def substitute_raw_units(words: torch.Tensor, bits: torch.Tensor,
     bits (R,) int32, units (R, du) uint8, n_valid (R,) int32. Returns
     (words', bits') with literal units' streams replaced by their
     original bytes and bits' = n_valid * 8."""
-    R, W = words.shape
-    du = units.shape[1]
-    if W < du // 4:
-        raise ValueError(f"stream width {W} cannot hold a {du}-byte "
-                         "literal unit")
     b = bits.long()
     nv = n_valid.long()
     if aligned:
         raw = (b + 31) // 32 >= (nv + 3) // 4
     else:
         raw = (b + 7) // 8 >= nv
-    pos = torch.arange(du, device=units.device)
-    masked = torch.where(pos[None, :] < nv[:, None], units,
-                         torch.zeros((), dtype=torch.uint8,
-                                     device=units.device))
-    uw = torch.zeros_like(words)
-    uw[:, : du // 4] = _be_words(masked)
+    uw = literal_words(units, n_valid, words.shape[1])
     words_out = torch.where(raw[:, None], uw, words)
     bits_out = torch.where(raw, (nv * 8).to(bits.dtype), bits)
     return words_out, bits_out
+
+
+def literal_unit_mask(bits: np.ndarray, n_valid: np.ndarray,
+                      aligned: bool) -> np.ndarray:
+    """Encode-side literal rule of `substitute_raw_units` on host numpy
+    bit counts: a unit is stored as its bytes when its coded stream
+    takes at least as much of the container layout (aligned: words,
+    else bytes)."""
+    b = np.asarray(bits, np.int64)
+    nv = np.asarray(n_valid, np.int64)
+    if aligned:
+        return (b + 31) // 32 >= (nv + 3) // 4
+    return (b + 7) // 8 >= nv
 
 
 def raw_unit_mask(stored_byte_lens: np.ndarray, n_valid: np.ndarray,
@@ -109,6 +134,19 @@ def words_to_unit_bytes(words: torch.Tensor, du: int) -> torch.Tensor:
         R, du)
 
 
+def literal_rows_plain(out: torch.Tensor, words: torch.Tensor,
+                       rows: torch.Tensor) -> torch.Tensor:
+    """K14's plain version: the literal rows `rows` ((n,) int64) of the
+    decoded (R, du) uint8 `out` overwritten, in place, with
+    `words_to_unit_bytes` of their (R, W) int32 stream words; returns
+    `out`."""
+    R, du = out.shape
+    raw = torch.zeros(R, dtype=torch.bool, device=out.device)
+    raw[rows] = True
+    out.copy_(torch.where(raw[:, None], words_to_unit_bytes(words, du), out))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Dense aligned payload: unit streams back to back at word granularity.
 # ---------------------------------------------------------------------------
@@ -121,6 +159,22 @@ def device_compact_words(words: torch.Tensor,
     keep = (torch.arange(W, device=words.device)[None, :]
             < word_lens.to(words.device)[:, None])
     return words[keep]
+
+
+def compact_units_plain(words: torch.Tensor, units: torch.Tensor,
+                        n_valid: torch.Tensor, word_offsets: torch.Tensor,
+                        literal: torch.Tensor, total: int) -> torch.Tensor:
+    """K10+K8's plain version: `substitute_raw_units`' literal rows on
+    the host's literal flags, then `device_compact_words` on the host's
+    word offsets ((R + 1,) int64, the total last). Returns the (total,)
+    int32 dense payload."""
+    rows = torch.where(literal.bool()[:, None],
+                       literal_words(units, n_valid, words.shape[1]), words)
+    out = device_compact_words(rows, word_offsets[1:] - word_offsets[:-1])
+    if out.numel() != total:
+        raise ValueError(f"word offsets give {out.numel()} words, not "
+                         f"{total}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +237,19 @@ def device_expand_words_u32(payload: torch.Tensor,
     ok = iw[None, :] < word_lens.to(dev)[:, None]
     return torch.where(ok, val, torch.zeros((), dtype=torch.int32,
                                               device=dev))
+
+
+def expand_units_plain(payload: torch.Tensor, offsets: torch.Tensor,
+                       W: int) -> torch.Tensor:
+    """K9/K12's plain version: a (T,) payload and (R + 1,) int64 offsets
+    into it (the total last) -> (R, W) int32 zero-padded big-endian
+    stream rows. int32 words take `device_expand_words_u32` (the
+    word-aligned layout); uint8 bytes take `device_expand_words` (the
+    unaligned order-0 container)."""
+    lens = offsets[1:] - offsets[:-1]
+    if payload.dtype == torch.uint8:
+        return device_expand_words(payload, offsets[:-1], lens, W)
+    return device_expand_words_u32(payload, offsets[:-1], lens, W)
 
 
 def device_expand_words(payload: torch.Tensor, byte_offsets: torch.Tensor,

@@ -1,8 +1,10 @@
 """Canonical Huffman codes and O(1) decode tables from code lengths.
 
-Counterpart of `mhc_tpu/ops/canonical.py::canonical_codes`, in torch on
-whatever device the lengths live on. Codes are a pure function of the
-lengths vector: prefix sums and one argsort, no tree.
+Counterpart of `mhc_tpu/ops/canonical.py::canonical_codes`, in plain
+torch on whatever device the lengths live on. Codes are a pure function
+of the lengths vector: prefix sums and one argsort, no tree. On a card
+the engine's tables come from K13 (`ops/kernels/tables_cuda.py`), whose
+plain version is `canonical_tables_plain`.
 
 Bit convention: MSB-first canonical codes (DEFLATE numbering). The
 decoder peeks a fixed MAX_CODE_LEN-bit window `w` and resolves the code
@@ -69,6 +71,17 @@ def canonical_codes(lengths: torch.Tensor,
         "first_code": first.to(i32),
         "sorted_syms": sorted_syms.to(i32),
     }
+
+
+def canonical_tables_plain(lengths: torch.Tensor, rows: int) -> dict:
+    """K13's plain version: `canonical_codes` of (L, 256) lengths as
+    (rows, ...) tables, each contiguous; L is `rows`, or 1 and its tables
+    repeated over the rows (order-0's single table, broadcast over the
+    256 contexts the kernels index)."""
+    t = canonical_codes(lengths)
+    if lengths.shape[0] == rows:
+        return t
+    return {k: v.expand(rows, v.shape[-1]).contiguous() for k, v in t.items()}
 
 
 def canonical_codes_host(lengths: np.ndarray,

@@ -14,11 +14,12 @@ import mhc_tpu_torch
 from mhc_tpu_torch import api, engine, hybrid
 from mhc_tpu_torch.bench import loop_calib, mosaic_probe, probes, vpu_probe
 from mhc_tpu_torch.models.entropy import get_model
-from mhc_tpu_torch.ops import bitpack
+from mhc_tpu_torch import container
+from mhc_tpu_torch.ops import bitpack, canonical
 from mhc_tpu_torch.ops import huffman
 from mhc_tpu_torch.ops.kernels import (_build, decode_cuda, encode_cuda,
                                        histogram_cuda, huffman_cuda,
-                                       probes_cuda)
+                                       probes_cuda, stages_cuda, tables_cuda)
 from mhc_tpu_torch.parallel import pipeline
 
 pytestmark = pytest.mark.cuda
@@ -195,11 +196,19 @@ _DEC0 = {"decode_lut_order0": 1, "decode_units_order0": 1}
                            "bubble_pack": 1, **_DEC0})])
 def test_launch_counters_count_kernel_launches(dev, mode, pack_method,
                                                expected):
-    """The default table build on a card is K11's: once per encode."""
+    """The default table build on a card is K11's: once per encode; the
+    canonical tables K13 once each way, K10+K8 once, K9 once, and K14
+    once where a literal row exists."""
     st = engine.stage(_data(50_000, 1), mode=mode, device=dev)
     _build.LAUNCHES.clear()
-    engine.decode(engine.encode(st, pack_method=pack_method))
-    assert dict(_build.LAUNCHES) == {**expected, "code_lengths": 1}
+    enc = engine.encode(st, pack_method=pack_method)
+    engine.decode(enc)
+    lit = bitpack.raw_unit_mask(enc.byte_lens, engine.host_n_valid(
+        enc.orig_len, enc.decode_unit, enc.n_units), enc.aligned).any()
+    assert dict(_build.LAUNCHES) == {
+        **expected, "code_lengths": 1, "canonical_tables": 2,
+        "compact_units": 1, "expand_units": 1,
+        **({"literal_rows": 1} if lit else {})}
 
 
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
@@ -478,6 +487,221 @@ def test_sharded_world_of_one_on_the_card(dev, mode):
     blob = pipeline.compress_sharded(data, mode=mode, device=dev)
     assert blob == mhc_tpu_torch.compress(data, mode=mode, device="cpu")
     assert pipeline.decompress_sharded(blob, device=dev) == data
+
+
+# ---------------------------------------------------------------------------
+# K13, K10+K8, K9/K12 and K14: the engine's stage kernels (csrc/tables.cu,
+# csrc/stages.cu)
+# ---------------------------------------------------------------------------
+
+def _stage_units(R: int, du: int, seed: int):
+    """(R, du) units zero past n_valid, n_valid with 0 rows and a ragged
+    last unit, and bit counts on both sides of both literal rules."""
+    rng = np.random.default_rng(seed)
+    nv = np.full(R, du, np.int32)
+    nv[rng.choice(R, max(1, R // 8), replace=False)] = 0
+    nv[-1] = du // 2 + 1
+    u = rng.integers(0, 256, (R, du), dtype=np.uint8)
+    u[np.arange(du)[None, :] >= nv[:, None]] = 0
+    bits = rng.integers(0, du * 15 + 1, R)
+    for i, unit in enumerate((32, 8)):
+        rows = np.arange(R) % 4 == i
+        bits[rows] = ((-(-nv.astype(np.int64) * 8 // unit)) * unit
+                      - rng.integers(0, unit, R))[rows]
+    bits[rng.choice(R, max(1, R // 8), replace=False)] = 0
+    return u, nv, np.maximum(bits, 0).astype(np.int32)
+
+
+def _compact_args(dev, words, u, nv, bits, aligned: bool):
+    """The host plan `engine.compact` makes, on the card."""
+    raw = bitpack.literal_unit_mask(bits, nv, aligned)
+    wl = (np.where(raw, nv.astype(np.int64) * 8, bits) + 31) // 32
+    offs = np.concatenate([[0], np.cumsum(wl)])
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (d(words), d(u), d(nv), d(offs), d(raw), int(offs[-1])), raw
+
+
+def _equal(a, b) -> bool:
+    torch.cuda.synchronize()
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("R,du", [(1, 64), (37, 64), (300, 1024),
+                                  (64, 8192)])
+def test_compact_units_equals_plain_version(dev, aligned, R, du):
+    u, nv, bits = _stage_units(R, du, R + du)
+    W = bitpack.words_for_block(du)
+    words = np.random.default_rng(R).integers(
+        -(1 << 31), 1 << 31, (R, W), dtype=np.int64).astype(np.int32)
+    args, raw = _compact_args(dev, words, u, nv, bits, aligned)
+    got = stages_cuda.compact_units(*args)
+    assert _equal(got, bitpack.compact_units_plain(*args))
+    # rows of a wider plane (compact_bubbles' view), and a literal plan
+    wide = torch.nn.functional.pad(args[0], (0, 3))[:, :W]
+    assert _equal(stages_cuda.compact_units(wide, *args[1:]), got)
+
+
+@pytest.mark.parametrize("R,max_len", [(1, 5), (37, 40), (300, 2049),
+                                       (3, 0)])
+def test_expand_units_equals_plain_version(dev, R, max_len):
+    """K9 on words and K12 on bytes at offsets off a multiple of 4, empty
+    units, W above the longest unit."""
+    rng = np.random.default_rng(R)
+    for dtype, scale in ((np.int32, 1), (np.uint8, 4)):
+        lens = rng.integers(0, max_len * scale + 1, R).astype(np.int64)
+        lens[rng.choice(R, max(1, R // 5), replace=False)] = 0
+        offs = np.concatenate([[0], np.cumsum(lens)])
+        info = np.iinfo(dtype)
+        payload = torch.from_numpy(rng.integers(
+            info.min, int(info.max) + 1, int(offs[-1]),
+            dtype=np.int64).astype(dtype)).to(dev)
+        offs_d = torch.from_numpy(offs).to(dev)
+        W = int(-(-lens.max() // scale)) + 1
+        got = stages_cuda.expand_units(payload, offs_d, W)
+        assert _equal(got, bitpack.expand_units_plain(payload, offs_d, W))
+
+
+@pytest.mark.parametrize("R,du,W", [(9, 64, 32), (9, 64, 11),
+                                    (300, 8192, 2049), (5, 16384, 4097),
+                                    (4, 4, 1)])
+def test_literal_rows_equals_plain_version(dev, R, du, W):
+    rng = np.random.default_rng(du + W)
+    words = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, (R, W), dtype=np.int64).astype(np.int32)).to(dev)
+    out = torch.from_numpy(rng.integers(0, 256, (R, du),
+                                        dtype=np.uint8)).to(dev)
+    rows = torch.from_numpy(np.flatnonzero(rng.random(R) < 0.4)).to(dev)
+    got = stages_cuda.literal_rows(out.clone(), words, rows)
+    assert _equal(got, bitpack.literal_rows_plain(out.clone(), words, rows))
+
+
+@pytest.mark.parametrize("kind", ["markov", "order0", "absent", "one_symbol",
+                                  "all15", "any_uint8"])
+def test_canonical_tables_equal_plain_version(dev, kind):
+    """K13 on valid codes, all-absent and one-symbol rows, all 15, and
+    any uint8 (lengths past 15 sort as the plain version's key puts
+    them; lim clamped to 2^31 - 1)."""
+    rng = np.random.default_rng(len(kind))
+    lengths = {
+        "markov": lambda: _edge_lengths("skewed", True, 1),
+        "order0": lambda: _edge_lengths("skewed", False, 2)[None],
+        "absent": lambda: np.zeros((1, 256), np.uint8),
+        "one_symbol": lambda: np.eye(1, 256, 200, dtype=np.uint8),
+        "all15": lambda: _edge_lengths("all15", True, 0),
+        "any_uint8": lambda: rng.integers(0, 256, (256, 256),
+                                          dtype=np.uint8),
+    }[kind]()
+    lengths = torch.from_numpy(np.ascontiguousarray(lengths)).to(dev)
+    got = tables_cuda.canonical_tables(lengths, 256)
+    ref = canonical.canonical_tables_plain(lengths, 256)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].is_contiguous() and _equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_stage_kernels_on_an_engine_batch(dev, mode):
+    """Each stage kernel == its plain version on one engine batch of each
+    mode (Markov 8 KB units, order-0 16 KB, literal units in play), and
+    K12 on the order-0 container's parsed, unaligned payload."""
+    model = get_model(mode)
+    data = _data(1 << 20, 12)
+    st = engine.stage(data, mode=mode, device=dev)
+    t = model.tables_from_lengths(model.lengths_for(
+        model.histogram(st.units, st.n_valid)), dev)
+    lengths = t["lengths"][:1 if not model.markov else 256].to(torch.uint8)
+    ref = canonical.canonical_tables_plain(lengths.contiguous(), 256)
+    assert all(_equal(t[k], ref[k]) for k in ref)
+    words, bits = encode_cuda.pack_units(st.units, st.n_valid, t["codes"],
+                                         t["lengths"])
+    aligned = container.aligned_payload(model.mode)
+    args, raw = _compact_args(
+        dev, words.cpu().numpy(), st.units.cpu().numpy(),
+        st.n_valid.cpu().numpy(), bits.cpu().numpy(), aligned)
+    assert raw.any()
+    payload = stages_cuda.compact_units(*args)
+    assert _equal(payload, bitpack.compact_units_plain(*args))
+    enc = engine.encode(st)
+    assert _equal(enc.payload, payload)
+    w, n_dec, raw, _ = engine.decode_inputs(enc)
+    lens = (enc.bit_lens + 31) // 32
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])).to(dev)
+    assert _equal(w, bitpack.expand_units_plain(enc.payload, offs,
+                                                w.shape[1]))
+    out = decode_cuda.decode_units(w, n_dec, t["lim"], t["base"],
+                                   t["first_code"], t["sorted_syms"],
+                                   n_out=enc.decode_unit,
+                                   markov=model.markov)
+    rows = torch.from_numpy(np.flatnonzero(raw)).to(dev)
+    got = stages_cuda.literal_rows(out.clone(), w, rows)
+    assert _equal(got, bitpack.literal_rows_plain(out.clone(), w, rows))
+    assert engine.fetch_bytes(enc, got) == data
+    meta = container.parse_container(engine.assemble_container(enc, None))
+    starts = np.concatenate([[0], np.cumsum(meta.byte_lengths)])
+    pay = np.frombuffer(engine.fetch_payload(enc), np.uint8)
+    parsed = api.parsed_chunk(meta, 0, enc.n_units,
+                              torch.from_numpy(pay.copy()).to(dev))
+    if not aligned:
+        assert parsed.payload.dtype == torch.uint8
+        offs = torch.from_numpy(starts.astype(np.int64)).to(dev)
+        W = int(-(-meta.byte_lengths.max() // 4)) + 1
+        assert _equal(stages_cuda.expand_units(parsed.payload, offs, W),
+                      bitpack.expand_units_plain(parsed.payload, offs, W))
+    assert engine.fetch_bytes(parsed, engine.decode(parsed)) == data
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_engine_launches_each_stage_kernel(dev, mode):
+    """One engine.encode launches K13 and K10+K8 once each; one
+    engine.decode K13 and K9 once each, and K14 once, literal rows being
+    present (order-0 on noise; Markov with every pair coded in 8 bits,
+    every unit a literal)."""
+    data = _data(300_001, 13)
+    st = engine.stage(data, mode=mode, device=dev)
+    lengths = (None if mode == "huffman"
+               else np.full((256, 256), 8, np.uint8))
+    _build.LAUNCHES.clear()
+    enc = engine.encode(st, lengths=lengths)
+    assert _build.LAUNCHES["canonical_tables"] == 1
+    assert _build.LAUNCHES["compact_units"] == 1
+    _build.LAUNCHES.clear()
+    out = engine.decode(enc)
+    assert {k: _build.LAUNCHES[k] for k in (
+        "canonical_tables", "expand_units", "literal_rows",
+        "compact_units")} == {"canonical_tables": 1, "expand_units": 1,
+                              "literal_rows": 1, "compact_units": 0}
+    assert engine.fetch_bytes(enc, out) == data
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+@pytest.mark.parametrize("pack_method", ["fused", "dense", "pallas"])
+@pytest.mark.parametrize("du", [None, 65536])
+def test_engine_on_the_card_never_calls_a_plain_stage(dev, monkeypatch, mode,
+                                                      pack_method, du):
+    """Every plain version of the four stage kernels, and the plain
+    helpers they are built from, raise: the engine's encode and decode on
+    the card still run (and round-trip), so its path never reaches
+    them. (The container's metadata coder, on the host, builds its
+    canonical code with `canonical_codes`: no container is built here.)"""
+    def boom(*a, **k):
+        raise AssertionError("a plain stage ran on the card")
+    for mod, names in ((canonical, ("canonical_codes",
+                                    "canonical_tables_plain")),
+                       (bitpack, ("substitute_raw_units", "literal_words",
+                                  "device_compact_words",
+                                  "compact_units_plain",
+                                  "device_expand_words_u32",
+                                  "device_expand_words",
+                                  "expand_units_plain",
+                                  "words_to_unit_bytes",
+                                  "literal_rows_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, boom)
+    data = _data(200_003, 14)
+    st = engine.stage(data, mode=mode, decode_unit=du, device=dev)
+    enc = engine.encode(st, pack_method=pack_method)
+    assert engine.fetch_bytes(enc, engine.decode(enc)) == data
 
 
 # ---------------------------------------------------------------------------

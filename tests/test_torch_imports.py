@@ -33,6 +33,7 @@ def test_the_port_imports_no_jax():
     for name in ("api", "engine", "cli", "hybrid", "serve", "utils.metrics",
                  "parallel.dryrun", "parallel.pipeline",
                  "ops.kernels.decode_cuda", "ops.kernels.probes_cuda",
+                 "ops.kernels.tables_cuda", "ops.kernels.stages_cuda",
                  "bench.probes", "bench.loop_calib", "bench.mosaic_probe",
                  "bench.vpu_probe"):
         assert f"mhc_tpu_torch.{name}" in got["imported"], name
