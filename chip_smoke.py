@@ -27,56 +27,74 @@ calls, after building and checking every kernel those paths run:
      equal to K5): first K11 (the device table build) == its plain
      version == the host build on corner rows (all zero, one symbol, two
      symbols, all 256 equal, Fibonacci rows that need the 15-bit repair,
-     int64 totals over 2**31, random rows; int32 and int64 counts); then
-     K1, K11 (its chain floor and the host build's ms beside it), K3,
-     K5, K4, K6, K7's table build and K7m
-     on the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) and the
-     compacted K6(K5(x)) == K3(x); K4 and K6 again on the payload route's
-     inputs (1,600 units of 64 KB), with the same two checks; K2, K11,
-     K3 and K6 (again, in the same rows), K7's order-0 table build and
+     int64 totals over 2**31, random rows; int32 and int64 counts), and
+     the fused table build (K11 and K13's bodies in one launch) == its
+     plain version on the same rows; then
+     K1, K11 (its chain floor and the host build's ms beside it), the
+     fused table build (== K11 then K13, and timed in turns against
+     them), K3,
+     K5, K4, K6, K15's rows of K6's stream, K7's table build and K7m
+     on the Markov inputs (12,800 units of 8 KB), with K4(K5(x)) and
+     K15(K6(K5(x))) == K3(x); K4, K6 and K15 again on the payload route's
+     inputs (1,600 units of 64 KB), with the same two checks and K15's
+     payload; K2, K11, the fused build (timed in turns against K11 then
+     K13: order-0's 256 blocks build one row), K3, K6 and K15 (again, in
+     the same rows), K7's order-0 table build and
      K7o on the order-0 inputs (6,400 units of 16 KB); on both paths'
      inputs the engine's stage kernels (`stage_checks`): K13 on the
-     path's lengths, K10+K8 on K3's rows with the host's literal plan
+     path's lengths (with the floor of a launch on its grid, an empty
+     kernel timed the same ways), K10+K8 on K3's rows with the host's
+     literal plan
      (its library call, one torch.masked_select over the substituted
      plane, checked equal), K9 on the engine's payload (its library
      call, one torch.take over a prepared index, checked equal), K12 on
      the order-0 container's parsed byte payload, K14 on K7's rows
   4. main path (Markov): engine.stage -> encode (the table build on
      the card) -> decode -> fetch_bytes with the launch counters reset
-     before and read after (K1, K11, K3, K7's table build, K7m, K10+K8,
-     K9 and K14 once each, K13 twice); bit-exact round trip; container
+     before and read after (K1, the fused table build, K3, K7's table
+     build, K7m, K10+K8, K9, K13 and K14 once each; K11 alone never);
+     bit-exact round trip; container
      size and sha256 equal to the JAX reference's; the host table build's encode (the counts fetched,
-     the native builder, the lengths passed in) counted (K11 never)
-     writes it too; the two encodes timed in turns; the container decodes
+     the native builder, the lengths passed in) counted (K11 and the
+     fused build never, K13 once) writes it too; the two encodes timed in turns; the container decodes
      through api.decompress; encode and decode GB/s
   5. dense and pallas paths: the same Markov input through engine.encode
      with pack_method="dense" (K5 then K4) and "pallas" (K5 then K6, the
-     bubble stream compacted), K3 never launched; the same container;
+     bubble stream compacted into rows by K15), K3 never launched; the
+     same container;
      encode GB/s, each timed in turns with the fused encode
   6. payload route: Markov with 64 KB decode units (== blocks, no
      literal units) through pack_method="pallas", whose bubble stream
-     goes straight to the payload; the JAX reference's container for
+     goes straight to the payload (K15); the JAX reference's container for
      that unit size; bit-exact round trip through engine.decode
   7. order-0 path: engine.stage(mode="huffman") -> encode -> decode ->
-     fetch_bytes, counters and table builds as in 4 (K2, K11, K3, the
-     order-0 table build and K7o launched, K1 not);
+     fetch_bytes, counters and table builds as in 4 (K2, the fused
+     build, K3, the order-0 table build and K7o launched, K1 not);
      bit-exact; the JAX reference's container; api.compress writes it and
      api.decompress reads it; encode and decode GB/s; then api.compress
-     with pack_method="pallas" (K5, K6) writes it too
+     with pack_method="pallas" (K5, K6, K15's rows) writes it too
   breakdown: the engine's stages at 100 MB with the device table build,
      both modes (host clock between synchronisations, minimum of 4):
-     histogram, K11, canonical tables (K13), K3, the bits fetch with
+     histogram, the table builds (the fused device build; K11 alone; the
+     host build, alone and followed by K13; K13 alone), K3, the bits
+     fetch with
      the literal plan and K10+K8 (`engine.compact`), `decode_inputs`
      (K13, one upload, K9), K7 with its table build, K14; the host
      build beside it, and the device's idle share over one encode +
-     decode (torch.profiler)
+     decode (torch.profiler); one `lengths_for` call counted (K11 alone)
+  redesign_turns: this slice's two redesigns against what they replace,
+     in turns at 100 MB (CUDA events): the encode with the fused table
+     build vs with K11's lengths passed in (K13 then builds the tables),
+     both modes; the "pallas" rows route and the payload route with K15
+     vs with the plain compactions
   small: 1 MB of the corpus as one block (BASELINE configs 1-2), both
      modes: the device and the host table build each counted and writing
      the JAX reference's container, timed in turns through engine.encode
      (the measurements behind `EntropyModel.lengths_for`), and
      api.compress timed
   8. host bytes: the chunked api.compress / api.decompress (at least two
-     chunks, K11 once), host bytes in and out, the reference container,
+     chunks, the fused table build once, its tables handed to every
+     chunk: K13 never), host bytes in and out, the reference container,
      timed in turns at 16 MB chunks and at the default `api.CHUNK_BYTES`
   9. CLI: api.compress_file / decompress_file in this process, counted
      (the stage kernels launched), then `python -m mhc_tpu_torch.cli`
@@ -84,7 +102,8 @@ calls, after building and checking every kernel those paths run:
      mhc_tpu.api.compress_file's), decode (equal to the input), stat;
      wall seconds of each
   10. hybrid: hybrid.compress / decompress at host_fraction 0.5,
-     counted (K13 and K10+K8 once; K13, K9 and K14 on decode), the
+     counted (the host build: K13 and K10+K8 once; K13, K9 and K14 on
+     decode), the
      reference container, bit-exact, wall seconds
   sharded: parallel.pipeline.compress_sharded / decompress_sharded at
      100 MB, each rank a subprocess (`--sharded-rank`, FileStore): one
@@ -109,7 +128,8 @@ calls, after building and checking every kernel those paths run:
      `serve.warmup`), its clients over urllib: /compress of the 100 MB
      corpus in both modes (the reference containers) and /decompress of
      each (the corpus), the Markov pair counted (K1 and K3 once per
-     chunk, K11 once; K7m and its table build once per chunk); eight
+     chunk, the fused table build once and K13 never; K7m, its table
+     build and K13 once per chunk); eight
      concurrent 1 MB clients (4 Markov, 4 order-0, one 1 MB block; the
      1 MB references); a garbage container (400); /healthz; /stats
      counting every request and the one error; each request's client
@@ -124,8 +144,9 @@ calls, after building and checking every kernel those paths run:
      either way; the traced phases, their sum beside the traced call's
      wall, and the untraced call's wall
   16. profile: `utils.metrics.torch_profile` around two engine.encode +
-     decode passes at 100 MB (Markov): the trace file names K1, K11, K3,
-     K7's table build, K7m, K13, K10+K8, K9 and K14 by their `__global__`
+     decode passes at 100 MB (Markov): the trace file names K1, the fused
+     table build, K3, K7's table build, K7m, K13, K10+K8, K9 and K14 by
+     their `__global__`
      names, with each one's device time and how many of its launches
      the trace holds (torch.profiler loses a window's first kernels in
      an aged process)
@@ -223,12 +244,17 @@ SHARDED_LEGS = (("nccl_1_rank", "nccl", 1, "markov"),
                 ("gloo_2_ranks_one_card", "gloo", 2, "markov,huffman"))
 
 # the stage kernels each engine call launches (K14: the 100 MB corpus has
-# literal units in both modes)
-STAGES_ENCODE = {"canonical_tables": "once", "compact_units": "once"}
+# literal units in both modes). An encode that builds its tables from the
+# device's counts launches the fused table build once, and neither K11
+# nor K13 alone; a decode launches K13 on the container's lengths.
+DEVICE_BUILD = {"code_tables": "once", "code_lengths": "none"}
+STAGES_ENCODE = {**DEVICE_BUILD, "canonical_tables": "none",
+                 "compact_units": "once"}
 STAGES_DECODE = {"canonical_tables": "some", "expand_units": "some",
                  "literal_rows": "some"}
-STAGES_ROUND_TRIP = {"canonical_tables": 2, "compact_units": "once",
-                     "expand_units": "once", "literal_rows": "once"}
+STAGES_ROUND_TRIP = {**DEVICE_BUILD, "canonical_tables": "once",
+                     "compact_units": "once", "expand_units": "once",
+                     "literal_rows": "once"}
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
@@ -249,8 +275,12 @@ KERNELS = {
     "decode_lut": ("decode.cu", "mhc_tpu/ops/kernels/decode_pallas.py:857"),
     "decode_lut_order0": ("decode.cu",
                           "mhc_tpu/ops/kernels/decode_pallas.py:845"),
-    # K11, the device table build: an XLA stage on the TPU, not Pallas
+    # K11, the device table build: an XLA stage on the TPU, not Pallas;
+    # alone (`EntropyModel.lengths_for`) and, with K13's body, the fused
+    # table build of the encode
     "code_lengths": ("huffman.cu", "mhc_tpu/ops/huffman.py:289"),
+    "code_tables": ("huffman.cu", "mhc_tpu/ops/huffman.py:289, "
+                    "mhc_tpu/ops/canonical.py:27"),
     # the engine's stages, XLA stages on the TPU: K13 (canonical tables),
     # K10+K8 (literal substitution, then compaction), K9/K12 (expansion
     # of word and of byte payloads), K14 (literal rows; with the
@@ -259,6 +289,11 @@ KERNELS = {
     "compact_units": ("stages.cu", "mhc_tpu/ops/bitpack.py:178, :509"),
     "expand_units": ("stages.cu", "mhc_tpu/ops/bitpack.py:480, :652"),
     "literal_rows": ("stages.cu", "mhc_tpu/ops/bitpack.py:221"),
+    # K15, the "pallas" routes' bubble compactions, XLA scatters on the TPU
+    "compact_bubbles": ("stages.cu",
+                        "mhc_tpu/ops/kernels/encode_pallas.py:514, :417"),
+    "bubbles_to_payload": ("stages.cu",
+                           "mhc_tpu/ops/kernels/encode_pallas.py:453"),
 }
 # P1-P3, the calibration probes: one entry per body, named by its launch
 # counter; dep1_* is P1's one-op chain, the calibration of INT_DEP_S
@@ -496,13 +531,14 @@ def decode_lut_checks(torch, rows: dict, t: dict, markov: bool) -> None:
 
 
 def cl_packers_checks(torch, rows: dict, cl, fused, inputs: str,
-                      dense: bool = True) -> None:
+                      dense: bool = True, payload: bool = False) -> None:
     """K4 (with `dense`) and K6 on the cl plane of one path's inputs
-    against their plain versions, and K4's words and the compacted K6's
-    against K3's `fused` (words, bits) of the same units. The 419 MB
-    planes of one comparison are freed before the next."""
+    against their plain versions, K15's rows of K6's bubble stream (and,
+    with `payload`, its payload) against theirs, and K4's words and K15's
+    rows against K3's `fused` (words, bits) of the same units. The 419
+    MB planes of one comparison are freed before the next."""
     from mhc_tpu_torch.ops import bitpack
-    from mhc_tpu_torch.ops.kernels import encode_cuda
+    from mhc_tpu_torch.ops.kernels import encode_cuda, stages_cuda
     if dense:
         split = compare(torch, rows, "pack_cl",
                         lambda: encode_cuda.pack_cl(cl),
@@ -521,13 +557,31 @@ def cl_packers_checks(torch, rows: dict, cl, fused, inputs: str,
                       lambda: encode_cuda.bubble_pack(cl),
                       lambda: encode_cuda.bubble_pack_plain(cl), 5, 1, inputs,
                       bound_bytes=lambda out: nbytes(cl, *out))
-    words = bitpack.compact_bubbles(*bubbles, fused[0].shape[1])
+    W = fused[0].shape[1]
+    none = {"library_ms_null_reason": "no one PyTorch call compacts a "
+            "flagged stream into rows or at per-unit offsets"}
+    (words,) = compare(
+        torch, rows, "compact_bubbles",
+        lambda: stages_cuda.compact_bubbles(*bubbles, W),
+        lambda: bitpack.compact_bubbles(*bubbles, W), 10, 2, inputs,
+        bound_bytes=lambda out: nbytes(*bubbles, *out), more=none)
     same = torch.equal(words, fused[0]) and torch.equal(bubbles[3], fused[1])
     emit("kernel", check="compact_bubbles(bubble_pack(lookup_cl(x))) == "
          "pack_units(x)", inputs=inputs, words_and_bits_equal=same)
     if not same:
-        raise AssertionError("the compacted K6(K5(x)) differs from K3(x) "
-                             f"on the {inputs} inputs")
+        raise AssertionError("K15(K6(K5(x))) differs from K3(x) on the "
+                             f"{inputs} inputs")
+    del words
+    if payload:
+        # the streams' words: the kernel writes only those
+        total = coded_bytes(bubbles[3]) // 4
+        compare(torch, rows, "bubbles_to_payload",
+                lambda: stages_cuda.bubbles_to_payload(*bubbles)[:total],
+                lambda: bitpack.bubbles_to_payload(*bubbles)[:total], 10, 2,
+                inputs, bound_bytes=lambda out: nbytes(*bubbles, *out),
+                more={**none, "words_written": total,
+                      "plain_zero_fill_words_dropped":
+                      bubbles[0].numel() + bubbles[0].shape[0] - total})
 
 
 def k11_merge_steps(counts) -> int:
@@ -580,15 +634,7 @@ def k11_checks(torch, rows: dict, model, counts, inputs: str) -> None:
         more={"chain_floor_ms": floor_ms, "held_to": "chain_floor_ms",
               "chain_floor_smem_ms": k11_chain_floor_smem_ms(flat),
               "host_build_ms": host_build_ms(torch, model, counts)})
-    row = rows["code_lengths"]
-    on = row["on_inputs"][inputs]
-    share = floor_ms / on["ms"]
-    on["share_of_chain_floor"] = share
-    if on["device_ms"]:
-        on["device_share_of_chain_floor"] = floor_ms / on["device_ms"]
-    row.setdefault("share_of_chain_floor", share)
-    row.setdefault("device_share_of_chain_floor",
-                   on.get("device_share_of_chain_floor"))
+    chain_floor_shares(rows["code_lengths"], inputs, floor_ms)
     host = model.lengths_from_counts(counts.cpu().numpy())
     same = bool((lengths.reshape(counts.shape).cpu().numpy() == host).all())
     emit("kernel", check="code_lengths(counts) == host build",
@@ -596,6 +642,67 @@ def k11_checks(torch, rows: dict, model, counts, inputs: str) -> None:
     if not same:
         raise AssertionError(f"K11 differs from the host build on the "
                              f"{inputs} counts")
+
+
+def chain_floor_shares(row: dict, inputs: str, floor_ms: float) -> None:
+    """A merge kernel's row (K11, the fused build) held to its chain
+    floor: the shares of the floor by `ms` and `device_ms`."""
+    on = row["on_inputs"][inputs]
+    on["share_of_chain_floor"] = floor_ms / on["ms"]
+    if on["device_ms"]:
+        on["device_share_of_chain_floor"] = floor_ms / on["device_ms"]
+    row.setdefault("share_of_chain_floor", on["share_of_chain_floor"])
+    row.setdefault("device_share_of_chain_floor",
+                   on.get("device_share_of_chain_floor"))
+
+
+def code_tables_checks(torch, rows: dict, counts, inputs: str) -> None:
+    """The fused table build (K11 and K13's bodies in one launch) against
+    its plain version on one path's counts, held to K11's chain floor
+    beside its bytes bound; then timed in turns against K11 followed by
+    K13, the two launches it replaces (on order-0, one row of counts, 256
+    blocks build the one row where K11 runs one block)."""
+    from mhc_tpu_torch.ops.kernels import huffman_cuda, tables_cuda
+    flat = counts.reshape(-1, 256).contiguous()
+    floor_ms = k11_chain_floor_ms(flat)
+    got = compare(
+        torch, rows, "code_tables",
+        lambda: as_tuple_tables(huffman_cuda.code_tables(flat, 256)),
+        lambda: as_tuple_tables(huffman_cuda.code_tables_plain(flat, 256)),
+        10, 3, inputs, bound_bytes=lambda out: nbytes(flat, *out),
+        more={"chain_floor_ms": floor_ms, "held_to": "chain_floor_ms",
+              "library_ms_null_reason": "no one PyTorch call builds "
+              "Huffman code lengths or canonical tables"})
+    chain_floor_shares(rows["code_tables"], inputs, floor_ms)
+    split = huffman_cuda.code_lengths(flat)
+    same = torch.equal(got[0], split) and all(
+        torch.equal(a, b) for a, b in zip(
+            got[1:], tables_cuda.canonical_tables(split, 256).values()))
+    emit("kernel", check="code_tables(counts) == canonical_tables("
+         "code_lengths(counts))", inputs=inputs, equal=same)
+    if not same:
+        raise AssertionError(f"the fused build differs from K11 then K13 "
+                             f"on the {inputs} counts")
+    builds = {"fused": lambda: huffman_cuda.code_tables(flat, 256),
+              "k11_then_k13": lambda: tables_cuda.canonical_tables(
+                  huffman_cuda.code_lengths(flat), 256)}
+    ms = {k: float("inf") for k in builds}
+    dev_ms = dict(ms)
+    for turn in ("fused", "k11_then_k13", "k11_then_k13", "fused") * 2:
+        ms[turn] = min(ms[turn], min_ms(torch, builds[turn], 3,
+                                        KERNEL_BATCH)[1])
+        dev_ms[turn] = min(dev_ms[turn], graph_ms(torch, builds[turn], 3,
+                                                  KERNEL_BATCH)[0])
+    emit("kernel", check="the table build: the fused launch vs K11 then "
+         "K13, in turns", inputs=inputs, ms=ms, device_ms=dev_ms)
+    rows["code_tables"]["on_inputs"][inputs]["in_turns"] = {
+        "ms": ms, "device_ms": dev_ms}
+
+
+def as_tuple_tables(built) -> tuple:
+    """(lengths, tables dict) -> (lengths, each table in layout order)."""
+    lengths, tables = built
+    return (lengths, *tables.values())
 
 
 def k11_synthetic_rows():
@@ -643,11 +750,20 @@ def phase_k11_synthetic(torch, dev) -> None:
             plain = huffman_cuda.code_lengths_plain(t)
             ok = (torch.equal(got, plain)
                   and bool((got.cpu().numpy() == host).all()))
+            # the fused build: its rows, and row 0's over 256 rows
+            for c_in, n in ((t, t.shape[0]), (t[:1], 256)):
+                fused = as_tuple_tables(huffman_cuda.code_tables(c_in, n))
+                ok = ok and all(torch.equal(a, b) for a, b in zip(
+                    fused, as_tuple_tables(
+                        huffman_cuda.code_tables_plain(c_in, n)),
+                    strict=True))
             seen[f"{name}/{str(dt)[6:]}"] = ok
             if not ok:
-                raise AssertionError(f"K11 on {name} ({dt}) differs from "
-                                     "its plain version or the host build")
-    emit("kernel", check="code_lengths synthetic rows == plain == host",
+                raise AssertionError(f"K11 or the fused build on {name} "
+                                     f"({dt}) differs from its plain "
+                                     "version or the host build")
+    emit("kernel", check="code_lengths synthetic rows == plain == host; "
+         "code_tables == its plain version",
          cases=seen, max_len=int(got.max()))
 
 
@@ -694,7 +810,8 @@ def stage_checks(torch, rows: dict, st, lengths, inputs: str) -> None:
     tables, its units' K3 rows with the host's literal plan, the
     engine's payload, and K7's rows. K10+K8's library call, one
     torch.masked_select over the substituted plane and a prepared mask,
-    checked equal to it; K13 and K14 have none."""
+    checked equal to it; K13 and K14 have none. Beside K13, the floor of
+    a launch on its grid (an empty kernel, timed the same ways)."""
     import numpy as np
     from mhc_tpu_torch import container, engine
     from mhc_tpu_torch.models.entropy import get_model
@@ -705,13 +822,18 @@ def stage_checks(torch, rows: dict, st, lengths, inputs: str) -> None:
     dev = st.units.device
     L = torch.from_numpy(np.ascontiguousarray(lengths, np.uint8)
                          .reshape(-1, 256)).to(dev)
+    # K13's floor: an empty kernel on its grid, timed as K13 is
+    floor = lambda: tables_cuda.launch_floor(dev)
     t = compare(
         torch, rows, "canonical_tables",
         lambda: tuple(tables_cuda.canonical_tables(L, 256).values()),
         lambda: tuple(canonical.canonical_tables_plain(L, 256).values()),
         10, 3, inputs, bound_bytes=lambda out: nbytes(L, *out),
         more={"library_ms_null_reason": "no one PyTorch call builds "
-              "canonical code tables"})
+              "canonical code tables",
+              "launch_floor_ms": min_ms(torch, floor, 10, KERNEL_BATCH)[1],
+              **device_fields(torch, floor, 10, KERNEL_BATCH,
+                              "launch_floor_device_ms")})
     words, bits = encode_cuda.pack_units(st.units, st.n_valid, t[0], t[1])
     aligned = container.aligned_payload(model.mode)
     R, W = words.shape
@@ -793,6 +915,7 @@ def phase_kernels_markov(torch, data: bytes, dev, rows: dict) -> None:
         library=lambda: torch.bincount(idx, minlength=65536))
     del idx
     k11_checks(torch, rows, MARKOV, counts, "markov")
+    code_tables_checks(torch, rows, counts, "markov")
     lengths = MARKOV.lengths_from_counts(counts.cpu().numpy())
     t = MARKOV.tables_from_lengths(lengths, dev)
     tab = (t["codes"], t["lengths"])
@@ -851,7 +974,7 @@ def phase_kernels_payload_route(torch, data: bytes, dev, rows: dict) -> None:
     tab = (t["codes"], t["lengths"])
     fused = encode_cuda.pack_units(u, nv, *tab)
     cl = encode_cuda.lookup_cl(u, nv, *tab)
-    cl_packers_checks(torch, rows, cl, fused, "payload_route")
+    cl_packers_checks(torch, rows, cl, fused, "payload_route", payload=True)
 
 
 def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
@@ -872,6 +995,7 @@ def phase_kernels_order0(torch, data: bytes, dev, rows: dict) -> None:
         library=lambda: torch.bincount(idx, minlength=256))
     del idx
     k11_checks(torch, rows, ORDER0, counts, "order0")
+    code_tables_checks(torch, rows, counts, "order0")
     lengths = ORDER0.lengths_from_counts(counts.cpu().numpy())
     t = ORDER0.tables_from_lengths(lengths, dev)
     tab = (t["codes"], t["lengths"])
@@ -950,28 +1074,25 @@ def host_build_encode(st):
 
 
 def table_build_turns(torch, st, turns: int = 2) -> dict:
-    """engine.encode of `st` (K11, the table build on the card) and
+    """engine.encode of `st` (the fused table build on the card) and
     `host_build_encode` in turns (device, host, host, device, `turns`
     times): the minimum ms of each, CUDA events around each call (the
     call ends in a sync)."""
     from mhc_tpu_torch import engine
-    fns = {"device": lambda: engine.encode(st),
-           "host": lambda: host_build_encode(st)}
-    ms = {"device": float("inf"), "host": float("inf")}
-    for turn in ("device", "host", "host", "device") * turns:
-        _, t = min_ms(torch, fns[turn], 1)
-        ms[turn] = min(ms[turn], t)
-    return ms
+    return in_turns(torch, {"device": lambda: engine.encode(st),
+                            "host": lambda: host_build_encode(st)}, turns)
 
 
 def host_route(torch, st, path: str, crc: int, ref_len: int,
                ref_sha: str) -> dict:
-    """`host_build_encode`, counted: K11 never launched, the reference
-    container. Returns its launches."""
+    """`host_build_encode`, counted: K11 and the fused build never
+    launched, K13 once on the given lengths; the reference container.
+    Returns its launches."""
     from mhc_tpu_torch import engine
     enc, launches = run_counted(torch, lambda: host_build_encode(st))
     require_launches(f"{path} (host build)", launches,
-                     {"code_lengths": "none"})
+                     {"code_lengths": "none", "code_tables": "none",
+                      "canonical_tables": "once"})
     check_container(f"{path} (host build)",
                     engine.assemble_container(enc, crc), ref_len, ref_sha)
     return launches
@@ -1051,13 +1172,18 @@ def device_idle_share(torch, fn):
 def phase_breakdown(torch, data: bytes, dev) -> None:
     """The engine's stages at 100 MB, both modes, the device table build:
     each stage as `engine.encode` / `engine.decode` run it, on the host
-    clock between synchronisations, minimum of 4; the whole encode with
-    each table build beside them; and the device's idle share over one
-    encode + decode (torch.profiler)."""
+    clock between synchronisations, minimum of 4; the table builds side
+    by side (the fused device build the encode runs; K11 alone; the host
+    build with the counts fetched, alone and followed by K13; K13 alone);
+    the whole encode with each table build beside them; and the device's
+    idle share over one encode + decode (torch.profiler). Returns the
+    launches of one `lengths_for` call (K11 alone, the build of the
+    callers that need only lengths), counted on the Markov counts."""
     from mhc_tpu_torch import container, engine
     from mhc_tpu_torch.models.entropy import get_model
     from mhc_tpu_torch.ops.kernels import (decode_cuda, encode_cuda,
                                            stages_cuda)
+    lengths_only = None
     for mode in ("markov", "huffman"):
         torch.cuda.empty_cache()
         model = get_model(mode)
@@ -1073,10 +1199,15 @@ def phase_breakdown(torch, data: bytes, dev) -> None:
 
         for _ in range(4):
             counts = stage("histogram", lambda: model.histogram(u, nv))
+            stage("device_table_build",
+                  lambda: model.tables_for(counts, dev))
             lengths = stage("k11_table_build",
                             lambda: model.lengths_for(counts))
             stage("host_table_build_with_counts_d2h",
                   lambda: model.lengths_from_counts(counts.cpu().numpy()))
+            stage("host_table_build_plus_canonical_tables",
+                  lambda: model.tables_from_lengths(model.lengths_from_counts(
+                      counts.cpu().numpy()), dev))
             t = stage("canonical_tables",
                       lambda: model.tables_from_lengths(lengths, dev))
             words, bits = stage("k3_pack", lambda: encode_cuda.pack_units(
@@ -1097,10 +1228,72 @@ def phase_breakdown(torch, data: bytes, dev) -> None:
             stage("literal_rows",
                   lambda: stages_cuda.literal_rows(out, w, lit))
             stage("decode_total", lambda: engine.decode(enc))
+        if mode == "markov":
+            _, lengths_only = run_counted(torch,
+                                          lambda: model.lengths_for(counts))
+            require_launches("lengths_for", lengths_only,
+                             {"code_lengths": "once", "code_tables": "none",
+                              "canonical_tables": "none"})
         idle = device_idle_share(
             torch, lambda: engine.decode(engine.encode(st)))
         emit("breakdown", mode=mode, n_bytes=len(data), stage_ms=ms,
-             device_idle_share_enc_dec=idle)
+             device_idle_share_enc_dec=idle,
+             **({"lengths_for_launches": lengths_only}
+                if mode == "markov" else {}))
+    return lengths_only
+
+
+def in_turns(torch, fns: dict, turns: int = 4) -> dict:
+    """{name: minimum ms} of two calls timed in turns (a, b, b, a,
+    `turns` times), CUDA events around each call (each ends in a sync)."""
+    a, b = fns
+    ms = {a: float("inf"), b: float("inf")}
+    for turn in (a, b, b, a) * turns:
+        ms[turn] = min(ms[turn], min_ms(torch, fns[turn], 1)[1])
+    return ms
+
+
+def phase_redesign_turns(torch, data: bytes, dev) -> None:
+    """This slice's redesigns against the designs they replace, in turns
+    in this process: the encode with the fused table build against the
+    encode with K11's lengths passed in, whose tables K13 then builds
+    (the two launches the fused one replaces), both modes; and the
+    "pallas" encodes (rows; the payload route) with K15 against the same
+    encodes with the plain compactions in its place."""
+    from mhc_tpu_torch import engine
+    from mhc_tpu_torch.models.entropy import get_model
+    from mhc_tpu_torch.ops import bitpack
+    from mhc_tpu_torch.ops.kernels import stages_cuda
+    out = {}
+    for mode in ("markov", "huffman"):
+        torch.cuda.empty_cache()
+        st = engine.stage(data, mode=mode, device=dev)
+        model = get_model(mode)
+        k11 = lambda: model.lengths_for(model.histogram(st.units,
+                                                        st.n_valid))
+        out[f"{mode}_encode"] = in_turns(torch, {
+            "fused_table_build": lambda: engine.encode(st),
+            "k11_then_k13": lambda: engine.encode(st, lengths=k11())})
+        del st
+    k15 = (stages_cuda.compact_bubbles, stages_cuda.bubbles_to_payload)
+
+    def plain_compactions(st):
+        stages_cuda.compact_bubbles = bitpack.compact_bubbles
+        stages_cuda.bubbles_to_payload = bitpack.bubbles_to_payload
+        try:
+            return engine.encode(st, pack_method="pallas")
+        finally:
+            stages_cuda.compact_bubbles, stages_cuda.bubbles_to_payload = k15
+
+    for route, du in (("markov_pallas_encode", None),
+                      ("payload_route_encode", 65536)):
+        torch.cuda.empty_cache()
+        st = engine.stage(data, decode_unit=du, device=dev)
+        out[route] = in_turns(torch, {
+            "k15": lambda: engine.encode(st, pack_method="pallas"),
+            "plain_compaction": lambda: plain_compactions(st)})
+        del st
+    emit("redesign_turns", n_bytes=len(data), encode_ms=out)
 
 
 def phase_split_path(torch, data: bytes, dev, pack_method: str,
@@ -1116,10 +1309,9 @@ def phase_split_path(torch, data: bytes, dev, pack_method: str,
     require_launches(path, launches, want)
     # the two encodes timed in turns, so that they compare within one
     # call: minimum over the turns of each
-    ms = {"fused": float("inf"), pack_method: float("inf")}
-    for turn in ("fused", pack_method, pack_method, "fused") * 2:
-        _, t = min_ms(torch, lambda: engine.encode(st, pack_method=turn), 1)
-        ms[turn] = min(ms[turn], t)
+    ms = in_turns(torch, {
+        "fused": lambda: engine.encode(st),
+        pack_method: lambda: engine.encode(st, pack_method=pack_method)}, 2)
     blob = engine.assemble_container(enc, zlib.crc32(data) & 0xFFFFFFFF)
     emit(path, n_bytes=len(data), launches=launches,
          encode_ms=ms[pack_method],
@@ -1130,10 +1322,10 @@ def phase_split_path(torch, data: bytes, dev, pack_method: str,
     return launches
 
 
-def phase_payload_route(torch, data: bytes, dev) -> bytes:
+def phase_payload_route(torch, data: bytes, dev):
     """Markov 100 MB with decode_unit == block_size through
-    pack_method="pallas": K6's bubble stream straight to the payload.
-    Returns the container."""
+    pack_method="pallas": K6's bubble stream straight to the payload
+    (K15). Returns (the container, its launches)."""
     from mhc_tpu_torch import engine
     torch.cuda.empty_cache()
 
@@ -1148,8 +1340,11 @@ def phase_payload_route(torch, data: bytes, dev) -> bytes:
                       "pack_units": "none", "pack_cl": "none",
                       "decode_lut": "once", "decode_units": "once",
                       # no literal units, and the bubble stream goes
-                      # straight to the payload: no K10+K8, no K14
-                      "canonical_tables": 2, "compact_units": "none",
+                      # straight to the payload (K15): no rows, no
+                      # K10+K8, no K14
+                      **DEVICE_BUILD, "canonical_tables": "once",
+                      "bubbles_to_payload": "once",
+                      "compact_bubbles": "none", "compact_units": "none",
                       "expand_units": "once", "literal_rows": "none"})
     if engine.fetch_bytes(enc, out) != data:
         raise AssertionError("payload_route: round trip is not bit-exact")
@@ -1164,7 +1359,7 @@ def phase_payload_route(torch, data: bytes, dev) -> bytes:
          sha256=hashlib.sha256(blob).hexdigest())
     check_container("payload_route", blob, REF_100MB_DU64K_LEN,
                     REF_100MB_DU64K_SHA256)
-    return blob
+    return blob, launches
 
 
 def phase_order0_pallas(torch, data: bytes, dev) -> None:
@@ -1176,7 +1371,9 @@ def phase_order0_pallas(torch, data: bytes, dev) -> None:
     require_launches("order0_pallas", launches,
                      {"order0_hist": "some", "lookup_cl": "some",
                       "bubble_pack": "some", "pack_units": "none",
-                      "markov_hist": "none", "canonical_tables": "some",
+                      "markov_hist": "none", **DEVICE_BUILD,
+                      "canonical_tables": "none", "compact_bubbles": "some",
+                      "bubbles_to_payload": "none",
                       "compact_units": "some"})
     emit("order0_pallas", n_bytes=len(data), launches=launches,
          container_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest())
@@ -1208,8 +1405,8 @@ def phase_host_bytes(torch, data: bytes, dev) -> None:
     blob, launches = run_counted(
         torch, lambda: api.compress(data, device=dev))
     require_launches("host_bytes", launches,
-                     {"markov_hist": "some", "code_lengths": "once",
-                      "pack_units": "some", "canonical_tables": "some",
+                     {"markov_hist": "some", **DEVICE_BUILD,
+                      "pack_units": "some", "canonical_tables": "none",
                       "compact_units": "some"})
     check_container("host_bytes", blob, REF_100MB_LEN, REF_100MB_SHA256)
     out, dec_launches = run_counted(
@@ -1257,8 +1454,7 @@ def phase_small(torch, dev) -> None:
         path = f"small_{mode}"
         st = engine.stage(data, mode=mode, block_size=1 << 20, device=dev)
         enc, launches = run_counted(torch, lambda: engine.encode(st))
-        require_launches(path, launches, {"code_lengths": "once",
-                                          **STAGES_ENCODE})
+        require_launches(path, launches, STAGES_ENCODE)
         check_container(path, engine.assemble_container(enc, crc),
                         ref_len, ref_sha)
         host_launches = host_route(torch, st, path, crc, ref_len, ref_sha)
@@ -1381,7 +1577,8 @@ def phase_sharded(torch, corpus_path: str) -> None:
                 require_launches(
                     f"sharded {leg} rank {res['rank']} {mode}",
                     {k: got["launches"].get(k, 0) for k in KERNELS},
-                    {**STAGES_DECODE, "compact_units": "some"})
+                    {**STAGES_DECODE, "code_tables": "some",
+                     "code_lengths": "none", "compact_units": "some"})
         legs[leg] = {"backend": backend, "ranks": world,
                      "wall_s_all_processes": wall, "per_rank": ranks}
     emit("sharded", n_bytes=CORPUS_BYTES, legs=legs,
@@ -1403,7 +1600,8 @@ def phase_cli(torch, corpus_path: str, data: bytes) -> None:
         check_container("files", f.read(), REF_100MB_SEG32M_LEN,
                         REF_100MB_SEG32M_SHA256)
     require_launches("files compress", file_enc,
-                     {"canonical_tables": "some", "compact_units": "some"})
+                     {"code_tables": "some", "code_lengths": "none",
+                      "canonical_tables": "none", "compact_units": "some"})
     _, file_dec = run_counted(torch, lambda: api.decompress_file(
         mhc, back, device="cuda:0"))
     with open(back, "rb") as f:
@@ -1715,8 +1913,8 @@ def phase_serve(torch, data: bytes, dev) -> None:
     served from a thread after `serve.warmup`), its clients over
     urllib: the 100 MB corpus compressed in both modes (the reference
     containers) and decompressed (the corpus), the Markov pair counted
-    (K1 and K3 once per chunk, K11 once; K7m and its table build once
-    per chunk); eight concurrent 1 MB clients (4 Markov, 4 order-0, one
+    (K1 and K3 once per chunk, the fused table build once, K13 never;
+    K7m, its table build and K13 once per chunk); eight concurrent 1 MB clients (4 Markov, 4 order-0, one
     block of 1 MB), each reply the 1 MB reference; a garbage container
     (400); /healthz; /stats counting every request and error. Each
     request's client wall time beside its X-MHC-Seconds."""
@@ -1752,14 +1950,15 @@ def phase_serve(torch, data: bytes, dev) -> None:
             if mode == "markov":
                 require_launches("serve /compress (Markov)", enc, {
                     "markov_hist": n_chunks, "pack_units": n_chunks,
-                    "code_lengths": 1, "decode_units": 0,
-                    "canonical_tables": n_chunks,
+                    "code_tables": 1, "code_lengths": 0,
+                    "decode_units": 0, "canonical_tables": 0,
                     "compact_units": n_chunks, "expand_units": 0})
                 require_launches("serve /decompress (Markov)", dec, {
                     "decode_units": n_chunks, "decode_lut": n_chunks,
                     "markov_hist": 0, "pack_units": 0, "code_lengths": 0,
-                    "canonical_tables": n_chunks, "compact_units": 0,
-                    "expand_units": n_chunks, "literal_rows": "some"})
+                    "code_tables": 0, "canonical_tables": n_chunks,
+                    "compact_units": 0, "expand_units": n_chunks,
+                    "literal_rows": "some"})
             requests[f"compress_100mb_{mode}"] = {
                 "client_wall_s": c_wall, "x_mhc_seconds": c_s,
                 "launches": enc, "container_bytes": len(blob)}
@@ -1964,7 +2163,7 @@ def phase_profile(torch, data: bytes, dev, age_s: float) -> None:
     100 MB Markov corpus, run twice in one window: the trace file is
     written, and it names each kernel of the main path by its
     `__global__` name, with each one's device time and how many of its
-    launches (two; K13's four) the trace holds. The first pass is there
+    launches (two each: K13 now only on the decode) the trace holds. The first pass is there
     because torch.profiler on this machine loses the first kernels of a
     window,
     more of them the longer the process has run (PERF.md §7); `age_s`,
@@ -1990,7 +2189,7 @@ def phase_profile(torch, data: bytes, dev, age_s: float) -> None:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     want = {"markov_hist": "markov_hist_kernel",
-            "code_lengths": "code_lengths_kernel",
+            "code_tables": "code_tables_kernel",
             "pack_units": "pack_units_kernel",
             "decode_lut": "decode_lut_kernel",
             "decode_units": "decode_units_kernel",
@@ -2003,8 +2202,7 @@ def phase_profile(torch, data: bytes, dev, age_s: float) -> None:
         hits = [e for e in kernels if fn in e.get("name", "")]
         if not hits:
             raise AssertionError(f"profile: the trace does not name {fn}")
-        found[name] = {"in_trace": len(hits),
-                       "launched": 4 if name == "canonical_tables" else 2,
+        found[name] = {"in_trace": len(hits), "launched": 2,
                        "device_us": [e.get("dur") for e in hits]}
     emit("profile", trace_file=os.path.relpath(path, REPO),
          trace_bytes=os.path.getsize(path), n_events=len(events),
@@ -2328,8 +2526,8 @@ def run_phases(torch, plains, plains_path: str, started: float) -> dict:
     phase_kernels_order0(torch, data, dev, rows)
     markov_blob, launches = round_trip(
         torch, data, "markov", dev, "main_path",
-        {"markov_hist": "once", "code_lengths": "once", "pack_units": "once",
-         "decode_lut": "once", "decode_units": "once", **STAGES_ROUND_TRIP},
+        {"markov_hist": "once", "pack_units": "once", "decode_lut": "once",
+         "decode_units": "once", **STAGES_ROUND_TRIP},
         REF_100MB_LEN, REF_100MB_SHA256)
     dense_launches = phase_split_path(
         torch, data, dev, "dense",
@@ -2338,16 +2536,18 @@ def run_phases(torch, plains, plains_path: str, started: float) -> dict:
     pallas_launches = phase_split_path(
         torch, data, dev, "pallas",
         {"lookup_cl": "once", "bubble_pack": "once", "pack_units": "none",
-         "pack_cl": "none", **STAGES_ENCODE})
-    du64k_blob = phase_payload_route(torch, data, dev)
+         "pack_cl": "none", "compact_bubbles": "once",
+         "bubbles_to_payload": "none", **STAGES_ENCODE})
+    du64k_blob, payload_launches = phase_payload_route(torch, data, dev)
     order0_blob, order0_launches = round_trip(
         torch, data, "huffman", dev, "order0_path",
-        {"order0_hist": "some", "code_lengths": "once", "pack_units": "some",
+        {"order0_hist": "some", "pack_units": "some",
          "decode_lut_order0": "some", "decode_units_order0": "some",
          "markov_hist": "none", **STAGES_ROUND_TRIP},
         REF_ORDER0_100MB_LEN, REF_ORDER0_100MB_SHA256)
     phase_order0_pallas(torch, data, dev)
-    phase_breakdown(torch, data, dev)
+    lengths_only_launches = phase_breakdown(torch, data, dev)
+    phase_redesign_turns(torch, data, dev)
     phase_small(torch, dev)
     phase_host_bytes(torch, data, dev)
     corpus_path = os.path.join(_build.BUILD_DIR, "corpus_100mb.bin")
@@ -2374,12 +2574,17 @@ def run_phases(torch, plains, plains_path: str, started: float) -> dict:
              for b in ("fetch316_i8_matmul", "fetch316_bf16_matmul",
                        "pick256_i32", "pick256_i8mul_i32sum")})
     # each kernel's launches on the path that runs it (K3: the main path;
-    # the order-0 path's launches are in its own line)
+    # the order-0 path's launches are in its own line; K11 alone: one
+    # `EntropyModel.lengths_for` call, the encode's build being the fused
+    # one)
     path_of = {"order0_hist": order0_launches,
                "decode_units_order0": order0_launches,
                "decode_lut_order0": order0_launches,
                "lookup_cl": dense_launches, "pack_cl": dense_launches,
-               "bubble_pack": pallas_launches}
+               "bubble_pack": pallas_launches,
+               "compact_bubbles": pallas_launches,
+               "bubbles_to_payload": payload_launches,
+               "code_lengths": lengths_only_launches}
     for probe, res in entry.items():    # a probe's bodies: its entry point
         path_of.update({name: res["launches"] for name in res["launches"]
                         if name.startswith(f"{probe}/")})

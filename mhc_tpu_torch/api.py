@@ -6,7 +6,8 @@ through the device-resident engine:
 
   compress:   `encode_range` over all units: pass 1: copy every chunk
               to the device and histogram it, the counts summed on the
-              device -> one table build (`EntropyModel.lengths_for`: K11
+              device -> one table build of lengths and tables
+              (`EntropyModel.tables_for`: one launch of the fused build
               on a card, the counts never fetched) ->
               pass 2: per chunk lookup+pack, literal substitution and
               compaction (engine.encode), the payload copied back ->
@@ -243,7 +244,8 @@ def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
     1 copies every chunk to the device and histograms it, the counts
     summed there in int64 and handed to `reduce_counts` (None: kept as
     they are; the sharded pipeline sums them over its ranks), then one
-    table build (`EntropyModel.lengths_for`); pass 2 packs each chunk
+    table build (`EntropyModel.tables_for`); pass 2 packs each chunk
+    with those lengths and tables
     and copies its payload back. `trace` (a `utils.metrics.Trace`, or
     None) times the phases. Returns (host uint8 lengths, (hi - lo,)
     int64 bit lengths, the container-layout payload in pieces, the crc32
@@ -279,7 +281,7 @@ def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
     with ph("tables", sync=dev):
         if reduce_counts is not None:
             counts = reduce_counts(counts)
-        lengths = model.lengths_for(counts)
+        lengths, tables = model.tables_for(counts, dev)
     # pass 2: pack and compact each chunk; the copy of its payload to the
     # host overlaps the next chunk's kernels
     payload, bit_lens, pending = [], [], []
@@ -290,7 +292,8 @@ def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
 
     for st in staged:
         with ph("pack", st.orig_len, sync=dev):
-            enc = engine.encode(st, lengths=lengths, pack_method=pack_method)
+            enc = engine.encode(st, lengths=lengths, tables=tables,
+                                pack_method=pack_method)
             be = engine.be_payload(enc)
         bit_lens.append(enc.bit_lens)
         with ph("d2h", be.numel(), sync=dev):

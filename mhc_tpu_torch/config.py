@@ -5,7 +5,7 @@ histogram and decode variants, chunk sizes) chose between TPU kernel
 variants; the port has one kernel per contract. The one choice a caller
 makes is `pack_method`, a parameter of `compress` and `engine.encode`;
 where the table build runs follows from where the counts lie
-(`EntropyModel.lengths_for`). Callers pass `device` to `stage`,
+(`EntropyModel.tables_for`). Callers pass `device` to `stage`,
 `compress` and `decompress`; None means the first CUDA card, and raises
 when there is none. The CPU, where every kernel runs as its plain
 PyTorch version, is used only when the caller names it.

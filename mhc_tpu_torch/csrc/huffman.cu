@@ -1,6 +1,10 @@
 // K11: deterministic length-limited Huffman code lengths of (rows, 256)
 // counts, one 256-thread block per row (256 Markov contexts, or the one
-// order-0 row).
+// order-0 row); and the fused table build `code_tables_kernel`, K11's
+// body followed in the same block by K13's (csrc/canonical.cuh) on the
+// lengths the block holds, so that the encode's table build is one launch
+// (K13 alone is a launch, most of it the host's enqueue, for work of
+// under a megabyte).
 //
 // Replaces mhc_tpu/ops/huffman.py::code_lengths (:289) with
 // rescale_counts_jax (:48): an XLA stage on the TPU (a vmapped two-queue
@@ -42,7 +46,7 @@
 //     chain is the code length, at most m - 1 steps, ~10 on real data);
 //   - the repair's reassignment ranks again by counting.
 
-#include "common.cuh"
+#include "canonical.cuh"
 
 namespace {
 
@@ -171,10 +175,10 @@ __device__ __forceinline__ void parent_steps(const int32_t* leaves_by,
   node_step = pn;
 }
 
+// The code length of symbol threadIdx.x in one row of 256 counts, on a
+// 256-thread block; every thread of the block must call it.
 template <typename T>
-__global__ void __launch_bounds__(kSyms)
-    code_lengths_kernel(const T* __restrict__ counts,
-                        uint8_t* __restrict__ out) {
+__device__ __forceinline__ int code_length(const T* __restrict__ counts) {
   __shared__ long long warp_sums[kSyms / 32];
   __shared__ __align__(16) int32_t key[kSyms];
   __shared__ int32_t leaf_w[kSyms + kPad];  // weights in (w, symbol) order
@@ -184,8 +188,7 @@ __global__ void __launch_bounds__(kSyms)
   __shared__ int32_t bl[kMaxLen + 1];     // codes per clamped length
 
   const int s = threadIdx.x;
-  const int64_t base = (int64_t)blockIdx.x * kSyms;
-  const long long c = (long long)counts[base + s];
+  const long long c = (long long)counts[s];
 
   // 1. rescale against the int64 row total
   long long v = c;
@@ -202,10 +205,7 @@ __global__ void __launch_bounds__(kSyms)
 
   // 2. the degenerate rows (m is the same in every thread)
   const int m = __syncthreads_count(present);
-  if (m <= 1) {
-    out[base + s] = present ? 1 : 0;
-    return;
-  }
+  if (m <= 1) return present ? 1 : 0;
 
   // 3. sort, merge, depths
   key[s] = present ? w : kInf;
@@ -234,10 +234,7 @@ __global__ void __launch_bounds__(kSyms)
   }
 
   // 4. the length limit, only where a length exceeds it
-  if (!__syncthreads_or(len > kMaxLen)) {
-    out[base + s] = (uint8_t)len;
-    return;
-  }
+  if (!__syncthreads_or(len > kMaxLen)) return len;
   const int clamped = len < kMaxLen ? len : kMaxLen;
   if (s <= kMaxLen) bl[s] = 0;
   __syncthreads();
@@ -274,7 +271,32 @@ __global__ void __launch_bounds__(kSyms)
     while (cum <= r) cum += bl[++l];
     len = l;
   }
-  out[base + s] = (uint8_t)len;
+  return len;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSyms)
+    code_lengths_kernel(const T* __restrict__ counts,
+                        uint8_t* __restrict__ out) {
+  const int64_t base = (int64_t)blockIdx.x * kSyms;
+  out[base + threadIdx.x] = (uint8_t)code_length(counts + base);
+}
+
+// The fused table build: K11's lengths, then the canonical tables of the
+// lengths each thread holds in a register, in one launch. Block `row`
+// builds from counts row `row`, or from row 0 where `broadcast` (order-0:
+// one row of counts, 256 rows of tables; the redundant builds run in the
+// same wave as block 0's), and writes table row `row`; the lengths go
+// out once a counts row.
+template <typename T>
+__global__ void __launch_bounds__(kSyms)
+    code_tables_kernel(const T* __restrict__ counts, int broadcast,
+                       uint8_t* __restrict__ out, mhc_canonical::Tables t) {
+  const int64_t row = blockIdx.x;
+  const int64_t in = broadcast ? 0 : row;
+  const int len = code_length(counts + in * kSyms);
+  if (in == row) out[in * kSyms + threadIdx.x] = (uint8_t)len;
+  mhc_canonical::canonical_row(len, row, t);
 }
 
 }  // namespace
@@ -291,5 +313,29 @@ extern "C" int mhc_code_lengths(const void* counts, int is64, int64_t rows,
   else
     code_lengths_kernel<int32_t><<<(unsigned)rows, kSyms, 0, stream>>>(
         static_cast<const int32_t*>(counts), out);
+  return (int)cudaGetLastError();
+}
+
+// The fused table build. counts: (in_rows, 256) int32 (is64 == 0) or int64
+// (is64 != 0), contiguous, in_rows == rows or 1 (one row of counts for
+// every table row); lengths: (in_rows, 256) uint8; the six tables as
+// mhc_canonical::Tables, each with `rows` rows.
+extern "C" int mhc_code_tables(const void* counts, int is64, int64_t in_rows,
+                               int64_t rows, uint8_t* lengths, int32_t* codes,
+                               int32_t* lens_out, int32_t* lim, int32_t* base,
+                               int32_t* first_code, int32_t* sorted_syms,
+                               cudaStream_t stream) {
+  if (rows < 0 || rows > INT32_MAX || (in_rows != rows && in_rows != 1))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  const int broadcast = in_rows != rows;
+  const mhc_canonical::Tables t{codes, lens_out, lim, base, first_code,
+                                sorted_syms};
+  if (is64)
+    code_tables_kernel<long long><<<(unsigned)rows, kSyms, 0, stream>>>(
+        static_cast<const long long*>(counts), broadcast, lengths, t);
+  else
+    code_tables_kernel<int32_t><<<(unsigned)rows, kSyms, 0, stream>>>(
+        static_cast<const int32_t*>(counts), broadcast, lengths, t);
   return (int)cudaGetLastError();
 }

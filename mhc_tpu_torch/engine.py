@@ -9,23 +9,26 @@ reference's 16 MB chunk loop bounded TPU VMEM and compile size, which a
 GPU does not need (the host-bytes API in `api.py` chunks for its copies).
 
 Paths, Markov and order-0 alike:
-  encode: histogram (K1 Markov, K2 order-0) -> table build ->
-          canonical tables (K13) -> lookup+pack -> the bits fetched (the
+  encode: histogram (K1 Markov, K2 order-0) -> table build (lengths and
+          canonical tables) -> lookup+pack -> the bits fetched (the
           encode's one sync) and the literal rule applied on the host ->
           literal substitution and compaction (K10+K8), where the table
-          build is
-            on a CUDA card: K11 on the counts where they lie, none
+          build (`EntropyModel.tables_for`) is
+            on a CUDA card: one launch of the fused build (K11's lengths
+              and K13's tables) on the counts where they lie, none
               fetched; the lengths come back to the host with the bit
               lengths the encode fetches anyway;
-            elsewhere: the counts fetched, the native builder
-            (`EntropyModel.lengths_for`);
+            elsewhere: the counts fetched, the native builder, the plain
+              tables;
+          (given lengths: K13 alone, `EntropyModel.tables_from_lengths`)
           and lookup+pack is
             pack_method="fused" (default): K3;
             pack_method="dense": K5 (cl plane) then K4 (pack);
             pack_method="pallas": K5 then K6 (bubble stream), compacted
-              by `bitpack.compact_bubbles`; for Markov with decode_unit
-              == block_size (no literal units) the bubble stream goes
-              straight to the payload (`bitpack.bubbles_to_payload`)
+              into rows by K15 (`stages_cuda.compact_bubbles`); for
+              Markov with decode_unit == block_size (no literal units)
+              the bubble stream goes straight to the payload (K15,
+              `stages_cuda.bubbles_to_payload`)
   decode: canonical tables (K13) -> expansion (K9 words, K12 the bytes of
           an unaligned container) -> decode (K7m Markov, K7o order-0;
           literal units skipped) -> literal rows (K14)
@@ -125,20 +128,29 @@ def check_pack_method(pack_method: str | None) -> str:
                      f"of {PACK_METHODS}")
 
 
-def encode(st: Staged, lengths=None,
-           pack_method: str | None = None) -> EncodeResult:
-    """Histogram -> table build (`EntropyModel.lengths_for`) ->
-    canonical tables -> lookup+pack -> literal substitution and
-    compaction (`compact`) -> dense word-aligned payload. `lengths`
-    (host uint8, or a tensor) overrides the histogram and table build;
-    `pack_method` is "fused" (None, K3), "dense" (K5 then K4) or
-    "pallas" (K5 then K6)."""
+def encode(st: Staged, lengths=None, pack_method: str | None = None,
+           tables: dict | None = None) -> EncodeResult:
+    """Histogram -> table build (`EntropyModel.tables_for`) ->
+    lookup+pack -> literal substitution and compaction (`compact`) ->
+    dense word-aligned payload. `lengths` (host uint8, or a tensor)
+    overrides the histogram and table build, its tables built from it
+    (`tables_from_lengths`) unless `tables`, that set already built on
+    the units' device, is given with it; `pack_method` is "fused" (None,
+    K3), "dense" (K5 then K4) or "pallas" (K5 then K6)."""
     pack_method = check_pack_method(pack_method)
     model = get_model(st.mode)
     dev = st.units.device
     if lengths is None:
-        lengths = model.lengths_for(model.histogram(st.units, st.n_valid))
-    tables = model.tables_from_lengths(lengths, dev)
+        if tables is not None:
+            raise ValueError("tables given without their lengths")
+        lengths, tables = model.tables_for(
+            model.histogram(st.units, st.n_valid), dev)
+    elif tables is None:
+        tables = model.tables_from_lengths(lengths, dev)
+    elif tables["codes"].device != dev or (torch.is_tensor(lengths)
+                                           and lengths.device != dev):
+        raise ValueError(f"tables on {tables['codes'].device} for units "
+                         f"on {dev}")
     lengths_host = _start_fetch(lengths)
     tab = (tables["codes"], tables["lengths"])
     aligned = container.aligned_payload(model.mode)
@@ -148,7 +160,7 @@ def encode(st: Staged, lengths=None,
         # straight to the payload, with no words plane
         bubbles = encode_cuda.bubble_pack(
             encode_cuda.lookup_cl(st.units, st.n_valid, *tab))
-        padded = bitpack.bubbles_to_payload(*bubbles)
+        padded = stages_cuda.bubbles_to_payload(*bubbles)
         bit_lens = bubbles[3].cpu().numpy().astype(np.int64)
         # a copy of the streams, so the result does not hold the padding
         payload = padded[: int(((bit_lens + 31) // 32).sum())].clone()
@@ -206,7 +218,7 @@ def _pack(st: Staged, tab, pack_method: str):
     if pack_method == "dense":
         return encode_cuda.pack_cl(cl)
     bubbles = encode_cuda.bubble_pack(cl)
-    return (bitpack.compact_bubbles(
+    return (stages_cuda.compact_bubbles(
         *bubbles, bitpack.words_for_block(st.decode_unit)), bubbles[3])
 
 

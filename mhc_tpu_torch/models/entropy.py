@@ -3,10 +3,13 @@
 Counterpart of `mhc_tpu/models/entropy.py`. A model owns the statistics
 pass over a unit batch and the shape of its code tables; tables use the
 unified [prev, cur] layout so the kernels are mode-agnostic. Order-0
-repeats its single table across the 256 context rows, materialised (K13
-writes them from its grid): the kernels read their tables through raw
-pointers, where a stride-0 view would read row 0's neighbours as
-garbage.
+repeats its single table across the 256 context rows, materialised (the
+table kernels write them from their grids): the kernels read their
+tables through raw pointers, where a stride-0 view would read row 0's
+neighbours as garbage. The encode builds lengths and tables from counts
+in one call (`tables_for`: on a card one launch of the fused table
+build); `lengths_for` and `tables_from_lengths` serve the callers that
+need one of the two.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from .. import container
 from ..ops import histogram, huffman
-from ..ops.kernels import tables_cuda
+from ..ops.kernels import huffman_cuda, tables_cuda
 
 
 @dataclass(frozen=True)
@@ -53,6 +56,20 @@ class EntropyModel:
             return huffman.code_lengths(counts)
         return torch.from_numpy(self.lengths_from_counts(
             counts.numpy().astype(np.int64)))
+
+    def tables_for(self, counts: torch.Tensor, device) -> tuple:
+        """(uint8 code lengths of the counts' shape, the table set of
+        `tables_from_lengths`) from int32 or int64 counts: on a CUDA card
+        one launch of the fused table build where the counts lie (K11
+        and K13 in one kernel, `huffman_cuda.code_tables`), elsewhere the
+        host build and the plain tables on `device`. Both give the same
+        lengths and tables."""
+        if counts.device.type != "cuda":
+            lengths = self.lengths_for(counts)
+            return lengths, self.tables_from_lengths(lengths, device)
+        lengths, tables = huffman_cuda.code_tables(
+            counts.reshape(-1, 256).contiguous(), 256)
+        return lengths.reshape(counts.shape), tables
 
     def tables_from_lengths(self, lengths, device) -> dict:
         """Full encode+decode table set on `device`, (256, ...) layout,

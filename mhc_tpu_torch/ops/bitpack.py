@@ -5,12 +5,13 @@ that the main paths run: the worst-case stream width, literal units, the
 dense aligned payload's compaction and expansion, the two compactions of
 K6's bubble stream (`compact_bubbles`, `bubbles_to_payload`, from
 `mhc_tpu/ops/kernels/encode_pallas.py`), and the byte-granular expansion
-of an unaligned container payload. Three of these stages are kernels on a
-card (`ops/kernels/stages_cuda.py`, `csrc/stages.cu`), and their plain
+of an unaligned container payload. These stages are kernels on a card
+(`ops/kernels/stages_cuda.py`, `csrc/stages.cu`), and their plain
 versions live here: `compact_units_plain` (K10+K8, literal substitution
-and compaction), `expand_units_plain` (K9/K12) and `literal_rows_plain`
-(K14). The bubble compactions and the byte <-> word conversions stay
-plain torch.
+and compaction), `expand_units_plain` (K9/K12), `literal_rows_plain`
+(K14), `compact_bubbles` and `bubbles_to_payload` (K15). The byte <->
+word conversions of the host-bytes API stay plain torch: the reference
+does that step on the host (`astype(">u4")`), not on its chip.
 
 Words are kept as torch.int32 bit patterns: torch's uint32 lacks shifts
 and many CPU ops. Bit order is MSB-first within each 32-bit word, and
@@ -187,8 +188,9 @@ def compact_units_plain(words: torch.Tensor, units: torch.Tensor,
 
 def compact_bubbles(bw: torch.Tensor, bv: torch.Tensor, tail: torch.Tensor,
                     bits: torch.Tensor, W: int) -> torch.Tensor:
-    """(R, rounds) bubble words and 0/1 flags, (R,) tail and bits -> (R,
-    W) int32 streams, zero past each: K4's words for the same cl plane."""
+    """K15's plain version (`stages_cuda.compact_bubbles`): (R, rounds)
+    bubble words and 0/1 flags, (R,) tail and bits -> (R, W) int32
+    streams, zero past each: K4's words for the same cl plane."""
     R = bw.shape[0]
     b = bits.long()
     pos = torch.cumsum(bv, dim=1, dtype=torch.long) - 1
@@ -201,7 +203,8 @@ def compact_bubbles(bw: torch.Tensor, bv: torch.Tensor, tail: torch.Tensor,
 
 def bubbles_to_payload(bw: torch.Tensor, bv: torch.Tensor,
                        tail: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """The bubble stream straight to the dense aligned payload, each
+    """K15's plain version (`stages_cuda.bubbles_to_payload`): the
+    bubble stream straight to the dense aligned payload, each
     unit's word offset an exclusive cumsum of ceil(bits / 32) on the
     device, so no host sync. The result has R * (rounds + 1) words, a
     bound on the total (a round completes at most one word), zero past

@@ -3,8 +3,10 @@
 Counterpart of `mhc_tpu/ops/canonical.py::canonical_codes`, in plain
 torch on whatever device the lengths live on. Codes are a pure function
 of the lengths vector: prefix sums and one argsort, no tree. On a card
-the engine's tables come from K13 (`ops/kernels/tables_cuda.py`), whose
-plain version is `canonical_tables_plain`.
+the engine's tables come from the fused table build on the encode
+(`ops/kernels/huffman_cuda.py::code_tables`) and from K13
+(`ops/kernels/tables_cuda.py`) on the decode; both share K13's body, and
+`canonical_tables_plain` is its plain version.
 
 Bit convention: MSB-first canonical codes (DEFLATE numbering). The
 decoder peeks a fixed MAX_CODE_LEN-bit window `w` and resolves the code

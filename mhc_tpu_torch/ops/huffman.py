@@ -6,7 +6,9 @@ encode on 256 contexts (Markov) or one row (order-0), on either side:
           or its numpy twin `code_lengths_np`;
   device: `code_lengths` on a counts tensor (K11, `ops/kernels/
           huffman_cuda.py`; the reference's `code_lengths` with
-          `rescale_counts_jax`), the counts never leaving the device.
+          `rescale_counts_jax`), the counts never leaving the device; the
+          encode runs K11 with the canonical tables in one launch
+          (`huffman_cuda.code_tables`).
 Ties are broken by (weight, then leaf-before-internal, then lower symbol)
 and lengths are limited to MAX_CODE_LEN with the deflate-style overflow
 repair. Both sides give the same bits for every input — containers are

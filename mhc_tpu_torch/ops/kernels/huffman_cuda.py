@@ -1,5 +1,7 @@
 """K11 — the device table build: length-limited Huffman code lengths of
-(rows, 256) counts. CUDA kernel wrapper + plain version.
+(rows, 256) counts, alone (`code_lengths`) or with the canonical tables
+in the same launch (`code_tables`, the encode's build). CUDA kernel
+wrappers + plain versions.
 
 Kernel: csrc/huffman.cu (sm_90a), one 256-thread block per row. It
 replaces mhc_tpu/ops/huffman.py::code_lengths with rescale_counts_jax (an
@@ -8,7 +10,9 @@ XLA stage on the TPU), and computes what the host builder does
 taken on the int64 row total, so that device and host builds agree for
 every input. Its time is the merge's serial chain of at most 255 steps
 of two picks a row on one thread, both queue heads in registers, every
-row in flight at once; the source note has the design.
+row in flight at once; the source note has the design. `code_tables`
+runs K13's table body (csrc/canonical.cuh) in the same blocks on the
+lengths they hold, so the encode's table build is one launch.
 """
 
 from __future__ import annotations
@@ -17,14 +21,18 @@ import ctypes
 
 import torch
 
-from . import _build
+from .. import canonical
+from . import _build, tables_cuda
 
 MAX_CODE_LEN = 15
 _MAX_TOTAL = 1 << 28
 _INF = 1 << 30
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-             ctypes.c_void_p]
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_ARGTYPES = [_P, ctypes.c_int, _I64, _P, _P]
+_TABLES_ARGTYPES = [_P, ctypes.c_int, _I64, _I64, _P, _P, _P, _P, _P, _P,
+                    _P, _P]
 
 
 def _check(counts: torch.Tensor) -> str:
@@ -159,3 +167,36 @@ def code_lengths(counts: torch.Tensor) -> torch.Tensor:
             counts.shape[0], out.data_ptr(), _build.stream_ptr(counts.device))
     _build.launched(lib, rc, "code_lengths")
     return out
+
+
+def code_tables_plain(counts: torch.Tensor, rows: int):
+    """The fused table build's plain version: `code_lengths_plain`, then
+    `canonical.canonical_tables_plain` of its lengths."""
+    lengths = code_lengths_plain(counts)
+    return lengths, canonical.canonical_tables_plain(lengths, rows)
+
+
+def code_tables(counts: torch.Tensor, rows: int):
+    """(L, 256) int32 or int64 counts, L == rows or 1 -> ((L, 256) uint8
+    code lengths, the dict of `canonical.canonical_codes` as (rows, ...)
+    int32 tables, each contiguous), on the counts' device; L == 1 repeats
+    its tables over the rows (order-0). CPU tensors take the plain
+    version; CUDA tensors launch the fused build, K11 and K13's bodies in
+    one kernel."""
+    dev = _check(counts)
+    if counts.shape[0] not in (1, rows):
+        raise ValueError(f"{counts.shape[0]} rows of counts for {rows} "
+                         "rows of tables")
+    if dev == "cpu":
+        return code_tables_plain(counts, rows)
+    lib, fn = _build.load("huffman", "mhc_code_tables", _TABLES_ARGTYPES)
+    lengths = torch.empty(counts.shape, dtype=torch.uint8,
+                          device=counts.device)
+    tables = tables_cuda.empty_tables(rows, counts.device)
+    if rows:
+        rc = fn(counts.data_ptr(), int(counts.dtype == torch.int64),
+                counts.shape[0], rows, lengths.data_ptr(),
+                *(t.data_ptr() for t in tables.values()),
+                _build.stream_ptr(counts.device))
+        _build.launched(lib, rc, "code_tables")
+    return lengths, tables

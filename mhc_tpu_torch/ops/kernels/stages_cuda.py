@@ -1,16 +1,24 @@
-"""K10+K8, K9/K12 and K14 — the unit-stream stages of the engine's encode
-and decode: CUDA kernel wrappers.
+"""K10+K8, K9/K12, K14 and K15 — the unit-stream stages of the engine's
+encode and decode: CUDA kernel wrappers.
 
 Kernels: csrc/stages.cu (sm_90a), one block per unit (K14: per literal
-row). They replace the XLA stages of mhc_tpu/ops/bitpack.py:
+row). They replace the XLA stages of mhc_tpu/ops/bitpack.py and of
+mhc_tpu/ops/kernels/encode_pallas.py:
   compact_units (K10+K8): substitute_raw_units (:178), then
     device_compact_words_slices (:509) / device_compact_words (:442);
   expand_units (K9/K12): device_expand_words_slices (:480) /
     device_expand_words_u32 (:467), and device_expand_words (:652);
   literal_rows (K14): words_to_unit_bytes (:221) with the jnp.where of
-    mhc_tpu/engine.py:495 and mhc_tpu/api.py:587.
+    mhc_tpu/engine.py:495 and mhc_tpu/api.py:587;
+  compact_bubbles (K15): encode_pallas.py::compact_bubbles (:514) and
+    the compaction in pack_blocks_pallas (:417), K6's bubble stream to
+    (R, W) rows;
+  bubbles_to_payload (K15): encode_pallas.py::pack_blocks_to_payload
+    (:453), K6's bubble stream straight to the dense payload, the word
+    offsets scanned on the card.
 Their plain versions are `ops/bitpack.py::compact_units_plain`,
-`expand_units_plain` and `literal_rows_plain`, with the same arguments.
+`expand_units_plain`, `literal_rows_plain`, `compact_bubbles` and
+`bubbles_to_payload`, with the same arguments.
 Each is bound by the bytes it copies (the source note has the design).
 """
 
@@ -30,6 +38,8 @@ _COMPACT_ARGTYPES = [_P, _I64, _I64, _I64, _P, _I64, _I, _P, _P, _P, _P,
                      _P]
 _EXPAND_ARGTYPES = [_P, _I64, _I, _P, _I64, _I64, _P, _P]
 _LITERAL_ARGTYPES = [_P, _I64, _I64, _P, _I64, _I64, _P, _P]
+_BUBBLES_ARGTYPES = [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P]
+_PAYLOAD_ARGTYPES = [_P, _P, _P, _P, _I64, _I64, _P, _P, _P]
 
 
 def _require(t: torch.Tensor, name: str, dtypes, shape) -> None:
@@ -137,4 +147,68 @@ def literal_rows(out: torch.Tensor, words: torch.Tensor,
     rc = fn(words.data_ptr(), R, words.shape[1], rows.data_ptr(),
             rows.numel(), du, out.data_ptr(), _build.stream_ptr(out.device))
     _build.launched(lib, rc, "literal_rows")
+    return out
+
+
+def _check_bubbles(bw, bv, tail, bits) -> str:
+    dev = _build.require_cuda_or_cpu(bw, bv, tail, bits)
+    if bw.dim() != 2:
+        raise ValueError("bw must be 2-D")
+    R, rounds = bw.shape
+    _require(bw, "bw", (torch.int32,), (R, rounds))
+    _require(bv, "bv", (torch.uint8,), (R, rounds))
+    _require(tail, "tail", (torch.int32,), (R,))
+    _require(bits, "bits", (torch.int32,), (R,))
+    return dev
+
+
+def compact_bubbles(bw: torch.Tensor, bv: torch.Tensor, tail: torch.Tensor,
+                    bits: torch.Tensor, W: int) -> torch.Tensor:
+    """K6's bubble stream, (R, rounds) int32 words and uint8 0/1 flags
+    and (R,) int32 tail and bits, each unit's valid slots at most W ->
+    (R, W) int32 rows: the k-th valid word of a unit at word k, the tail
+    at word bits >> 5 where bits % 32 != 0, zero past the stream. CPU
+    tensors take the plain version; CUDA tensors launch K15."""
+    dev = _check_bubbles(bw, bv, tail, bits)
+    if W < 0:
+        raise ValueError(f"row width {W} < 0")
+    if dev == "cpu":
+        return bitpack.compact_bubbles(bw, bv, tail, bits, W)
+    lib, fn = _build.load("stages", "mhc_compact_bubbles", _BUBBLES_ARGTYPES)
+    R, rounds = bw.shape
+    out = torch.empty((R, W), dtype=torch.int32, device=bw.device)
+    if R * W == 0:
+        return out
+    rc = fn(bw.data_ptr(), bv.data_ptr(), tail.data_ptr(), bits.data_ptr(),
+            R, rounds, W, out.data_ptr(), _build.stream_ptr(bw.device))
+    _build.launched(lib, rc, "compact_bubbles")
+    return out
+
+
+def bubbles_to_payload(bw: torch.Tensor, bv: torch.Tensor,
+                       tail: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """The same bubble stream, each unit's valid slots counting bits >> 5
+    (K6's), straight to the dense word-aligned payload: unit r's
+    ceil(bits[r] / 32) words at the exclusive sum of those counts over
+    the units before, computed on the device (no host sync). Returns an
+    (R * (rounds + 1),) int32 buffer, a bound on the total: the caller
+    keeps the first total words once the bits reach the host. The plain
+    version zeroes the words past the total; the kernel leaves them
+    unwritten. CPU tensors take the plain version; CUDA tensors launch
+    K15 (a one-block scan of the word offsets, then the compaction)."""
+    dev = _check_bubbles(bw, bv, tail, bits)
+    if dev == "cpu":
+        return bitpack.bubbles_to_payload(bw, bv, tail, bits)
+    lib, fn = _build.load("stages", "mhc_bubbles_to_payload",
+                          _PAYLOAD_ARGTYPES)
+    R, rounds = bw.shape
+    out = torch.empty((R * (rounds + 1),), dtype=torch.int32,
+                      device=bw.device)
+    if R == 0:
+        return out
+    offs = torch.empty((R + 1,), dtype=torch.int64, device=bw.device)
+    rc = fn(bw.data_ptr(), bv.data_ptr(), tail.data_ptr(), bits.data_ptr(),
+            R, rounds, offs.data_ptr(), out.data_ptr(),
+            _build.stream_ptr(bw.device))
+    _build.launched(lib, rc, "bubbles_to_payload")
     return out

@@ -7,8 +7,10 @@ Counterpart of `mhc_tpu/parallel/pipeline.py`, whose `shard_map` /
   two-pass global histogram  -> each rank histograms its share (K1 / K2),
                                 then `all_reduce(SUM)` of the counts in
                                 int64
-  broadcast of shared tables -> none: every rank runs K11 on the identical
-                                counts, so the tables are replicated by
+  broadcast of shared tables -> none: every rank runs the table build
+                                (on a card the fused build, K11 and K13
+                                in one launch) on the identical counts,
+                                so the tables are replicated by
                                 determinism, as in the reference
   block-parallel encode /    -> each rank runs the engine on its units
   decode                        (the fused route, literal units where
@@ -99,7 +101,7 @@ def _my_rows(rows: np.ndarray, n_valid: np.ndarray, lo: int, count: int):
 def encode_sharded(blocks: np.ndarray, n_valid: np.ndarray,
                    mesh: Mesh | None = None, markov: bool = True):
     """One sharded encode step over a host (B, n) uint8 block batch:
-    histogram, all-reduce, K11, K3 per rank, ordered gather. Returns host
+    histogram, all-reduce, the fused table build, K3 per rank, ordered gather. Returns host
     (words (B, W) int32, bits (B,) int32, lengths uint8)."""
     mesh = mesh or make_mesh()
     model = MARKOV if markov else ORDER0
@@ -108,10 +110,9 @@ def encode_sharded(blocks: np.ndarray, n_valid: np.ndarray,
     u = torch.from_numpy(mine).to(mesh.device)
     nv_d = torch.from_numpy(nv).to(mesh.device)
     # the replicated table build: the counts summed over the ranks in
-    # int64, then built on every rank (K11 on a card)
-    lengths = model.lengths_for(
-        _all_reduce_sum(mesh, model.histogram(u, nv_d).long()))
-    t = model.tables_from_lengths(lengths, mesh.device)
+    # int64, then built on every rank (the fused build on a card)
+    lengths, t = model.tables_for(
+        _all_reduce_sum(mesh, model.histogram(u, nv_d).long()), mesh.device)
     words, bits = encode_cuda.pack_units(u, nv_d, t["codes"], t["lengths"])
     words = torch.cat([w.cpu() for w in _all_gather(mesh, words)])[:B]
     bits = torch.cat([b.cpu() for b in _all_gather(mesh, bits)])[:B]

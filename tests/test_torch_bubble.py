@@ -8,7 +8,9 @@ word slots of rounds that complete no word, and `pack_tile_reference`
 on one tile;
 `compact_bubbles` equals `pack_blocks_pallas` and `bubbles_to_payload`
 equals `pack_blocks_to_payload` (both interpret mode); and the compacted
-bubble stream equals K3's words for both modes.
+bubble stream equals K3's words for both modes. K15's wrappers
+(`stages_cuda.compact_bubbles`, `bubbles_to_payload`) take those plain
+versions on CPU tensors and refuse what their kernels do not take.
 """
 
 import jax.numpy as jnp
@@ -19,7 +21,7 @@ import torch
 from mhc_tpu.ops.kernels import encode_pallas
 from mhc_tpu_torch.models.entropy import tables_from_numpy
 from mhc_tpu_torch.ops import bitpack
-from mhc_tpu_torch.ops.kernels import encode_cuda
+from mhc_tpu_torch.ops.kernels import encode_cuda, stages_cuda
 from tests.test_torch_dense import _case
 
 SHAPES = [(1024, 64), (200, 333), (64, 512)]
@@ -110,3 +112,82 @@ def test_compacted_bubbles_equal_pack_units(mode):
     ref_words, ref_bits = encode_cuda.pack_units(u, nv, *tab)
     assert torch.equal(words, ref_words)
     assert torch.equal(bubbles[3], ref_bits)
+
+
+# ---------------------------------------------------------------------------
+# K15's wrappers (`stages_cuda.compact_bubbles`, `bubbles_to_payload`):
+# on CPU tensors their plain versions above, and the arguments the kernels
+# take
+# ---------------------------------------------------------------------------
+
+def _bubbles(R: int = 12, n: int = 64, seed: int = 3):
+    """K6's outputs for _units' batch: row 1 has n_valid 0, row 2 one
+    symbol (a tail and no valid slot)."""
+    return encode_cuda.bubble_pack(_cl(R, n, seed))
+
+
+@pytest.mark.parametrize("R,n", SHAPES)
+def test_k15_wrappers_match_the_reference(R, n):
+    """The wrappers, on the CPU, equal pack_blocks_pallas' rows and
+    pack_blocks_to_payload's streams (interpret mode), a unit of n_valid
+    0 and one of a single symbol included."""
+    cl = _cl(R, n, seed=n + 3)
+    bubbles = encode_cuda.bubble_pack(cl)
+    assert int(bubbles[3][1]) == 0 and not bubbles[1][1].any()
+    assert 0 < int(bubbles[3][2]) < 32 and not bubbles[1][2].any()
+    ref_words, ref_bits = encode_pallas.pack_blocks_pallas(
+        jnp.asarray(_u32(cl)), interpret=True)
+    words = stages_cuda.compact_bubbles(*bubbles, bitpack.words_for_block(n))
+    np.testing.assert_array_equal(_u32(words), np.asarray(ref_words))
+    ref_payload, _ = encode_pallas.pack_blocks_to_payload(
+        jnp.asarray(_u32(cl)), interpret=True)
+    total = int(((np.asarray(ref_bits).astype(np.int64) + 31) // 32).sum())
+    payload = stages_cuda.bubbles_to_payload(*bubbles)
+    assert payload.shape == (R * ((n + 1) // 2 + 1),)
+    np.testing.assert_array_equal(_u32(payload)[:total],
+                                  np.asarray(ref_payload)[:total])
+
+
+def test_k15_wrappers_take_the_plain_versions_on_the_cpu(monkeypatch):
+    """On CPU tensors each wrapper returns its plain version's result,
+    and only because the tensors lie on the CPU."""
+    calls = []
+    for name in ("compact_bubbles", "bubbles_to_payload"):
+        real = getattr(bitpack, name)
+        monkeypatch.setattr(bitpack, name, lambda *a, _r=real, _n=name:
+                            calls.append(_n) or _r(*a))
+    bubbles = _bubbles()
+    rows = stages_cuda.compact_bubbles(*bubbles, 7)
+    payload = stages_cuda.bubbles_to_payload(*bubbles)
+    assert calls == ["compact_bubbles", "bubbles_to_payload"]
+    assert rows.dtype == payload.dtype == torch.int32
+    assert rows.shape == (12, 7)
+
+
+@pytest.mark.parametrize("bad", ["bw_dtype", "bv_dtype", "bv_shape",
+                                 "tail_shape", "bits_dtype", "bw_view",
+                                 "bw_rank", "width"])
+def test_k15_wrappers_refuse_what_their_kernels_do_not_take(bad):
+    bw, bv, tail, bits = _bubbles()
+    args = {"bw_dtype": (bw.long(), bv, tail, bits),
+            "bv_dtype": (bw, bv.bool(), tail, bits),
+            "bv_shape": (bw, bv[:, :-1].contiguous(), tail, bits),
+            "tail_shape": (bw, bv, tail[:-1], bits),
+            "bits_dtype": (bw, bv, tail, bits.long()),
+            "bw_view": (bw.t().contiguous().t(), bv, tail, bits),
+            "bw_rank": (bw.reshape(-1), bv, tail, bits),
+            "width": (bw, bv, tail, bits)}[bad]
+    with pytest.raises(ValueError):
+        stages_cuda.compact_bubbles(*args, -1 if bad == "width" else 9)
+    if bad != "width":
+        with pytest.raises(ValueError):
+            stages_cuda.bubbles_to_payload(*args)
+
+
+def test_k15_wrappers_of_no_units():
+    empty = (torch.zeros((0, 32), dtype=torch.int32),
+             torch.zeros((0, 32), dtype=torch.uint8),
+             torch.zeros(0, dtype=torch.int32),
+             torch.zeros(0, dtype=torch.int32))
+    assert stages_cuda.compact_bubbles(*empty, 9).shape == (0, 9)
+    assert stages_cuda.bubbles_to_payload(*empty).shape == (0,)

@@ -189,16 +189,18 @@ _DEC0 = {"decode_lut_order0": 1, "decode_units_order0": 1}
                          **_DEC}),
     ("huffman", "fused", {"order0_hist": 1, "pack_units": 1, **_DEC0}),
     ("markov", "pallas", {"markov_hist": 1, "lookup_cl": 1,
-                          "bubble_pack": 1, **_DEC}),
+                          "bubble_pack": 1, "compact_bubbles": 1, **_DEC}),
     ("huffman", "dense", {"order0_hist": 1, "lookup_cl": 1, "pack_cl": 1,
                           **_DEC0}),
     ("huffman", "pallas", {"order0_hist": 1, "lookup_cl": 1,
-                           "bubble_pack": 1, **_DEC0})])
+                           "bubble_pack": 1, "compact_bubbles": 1,
+                           **_DEC0})])
 def test_launch_counters_count_kernel_launches(dev, mode, pack_method,
                                                expected):
-    """The default table build on a card is K11's: once per encode; the
-    canonical tables K13 once each way, K10+K8 once, K9 once, and K14
-    once where a literal row exists."""
+    """The default table build on a card is the fused one (K11 and K13
+    in one launch): once per encode, K11 and K13 alone never; K13 once
+    on the decode, K15 once on a "pallas" encode, K10+K8 once, K9 once,
+    and K14 once where a literal row exists."""
     st = engine.stage(_data(50_000, 1), mode=mode, device=dev)
     _build.LAUNCHES.clear()
     enc = engine.encode(st, pack_method=pack_method)
@@ -206,7 +208,7 @@ def test_launch_counters_count_kernel_launches(dev, mode, pack_method,
     lit = bitpack.raw_unit_mask(enc.byte_lens, engine.host_n_valid(
         enc.orig_len, enc.decode_unit, enc.n_units), enc.aligned).any()
     assert dict(_build.LAUNCHES) == {
-        **expected, "code_lengths": 1, "canonical_tables": 2,
+        **expected, "code_tables": 1, "canonical_tables": 1,
         "compact_units": 1, "expand_units": 1,
         **({"literal_rows": 1} if lit else {})}
 
@@ -455,8 +457,9 @@ def test_k11_equals_plain_version_and_host_build(dev, kind, dtype):
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
 def test_k11_on_corpus_counts_and_both_table_builds(dev, mode):
     """K11 on a histogram's counts, in place on the card, equals the host
-    build; the engine's two table builds write the same container, K11
-    launched by the device build only."""
+    build; the engine's two table builds write the same container, the
+    fused build (K11 and K13 in one launch) launched by the device build
+    only, and K11 alone by neither."""
     model = get_model(mode)
     data = _data(300_001, 5)
     st = engine.stage(data, mode=mode, device=dev)
@@ -472,13 +475,17 @@ def test_k11_on_corpus_counts_and_both_table_builds(dev, mode):
             ("host", lambda: engine.encode(st, lengths=host_lengths))):
         _build.LAUNCHES.clear()
         enc = encode()
-        assert _build.LAUNCHES["code_lengths"] == (build == "device")
+        assert _build.LAUNCHES["code_tables"] == (build == "device")
+        assert _build.LAUNCHES["canonical_tables"] == (build == "host")
+        assert _build.LAUNCHES["code_lengths"] == 0
         blobs[build] = engine.assemble_container(enc, None)
     assert blobs["device"] == blobs["host"]
     _build.LAUNCHES.clear()
     assert (api.compress(data, mode=mode, device=dev)
             == mhc_tpu_torch.compress(data, mode=mode, device="cpu"))
-    assert _build.LAUNCHES["code_lengths"] == 1
+    assert _build.LAUNCHES["code_tables"] == 1
+    assert _build.LAUNCHES["code_lengths"] == 0
+    assert _build.LAUNCHES["canonical_tables"] == 0
 
 
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
@@ -600,6 +607,93 @@ def test_canonical_tables_equal_plain_version(dev, kind):
         assert got[k].is_contiguous() and _equal(got[k], ref[k]), k
 
 
+@pytest.mark.parametrize("mode", ["markov", "order0"])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("kind", ["all_zero", "one_symbol", "two_symbols",
+                                  "three_symbols", "all_equal", "fibonacci",
+                                  "over_2_31", "random", "random_256"])
+def test_code_tables_equal_plain_version(dev, kind, dtype, mode):
+    """The fused table build (K11 then K13's body in the same blocks) ==
+    its plain version (K11's, then K13's): Markov, every row of counts
+    its row of tables; order-0, each row of counts alone, its tables on
+    all 256 rows (256 blocks building the same row)."""
+    counts = _k11_rows(kind)
+    if dtype == torch.int32:
+        counts = np.minimum(counts, 1 << 22)   # a row's total fits int32
+    t = torch.from_numpy(counts).to(dev, dtype)
+    cases = ([(t, t.shape[0])] if mode == "markov"
+             else [(t[i: i + 1], 256) for i in range(min(len(t), 4))])
+    for c, rows in cases:
+        _build.LAUNCHES.clear()
+        lengths, tables = huffman_cuda.code_tables(c, rows)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["code_tables"] == 1
+        ref_lengths, ref = huffman_cuda.code_tables_plain(c, rows)
+        assert _equal(lengths, ref_lengths)
+        assert set(tables) == set(ref)
+        for k in ref:
+            assert tables[k].is_contiguous() and _equal(tables[k], ref[k]), k
+
+
+def _k15_bubbles(dev, R: int, rounds: int, seed: int):
+    """A bubble stream as K6 writes one, at any shape: each unit's valid
+    slots at a density of its own (units with none among them), random
+    words behind every slot, and bits = 32 * valid slots + a tail of
+    0-31 bits (units with and without a tail)."""
+    rng = np.random.default_rng(seed)
+    bv = (rng.random((R, rounds)) < rng.random((R, 1))).astype(np.uint8)
+    bv[rng.random(R) < 0.2] = 0
+    bw = rng.integers(-(1 << 31), 1 << 31, (R, rounds),
+                      dtype=np.int64).astype(np.int32)
+    tail_bits = rng.integers(0, 32, R) * (rng.random(R) < 0.7)
+    bv[:2] = 0
+    tail_bits[:2] = (0, 17)[:R]    # unit 0 empty, unit 1 a tail alone
+    bits = 32 * bv.sum(axis=1, dtype=np.int64) + tail_bits
+    tail = rng.integers(-(1 << 31), 1 << 31, R,
+                        dtype=np.int64).astype(np.int32)
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (d(bw), d(bv), d(tail), d(bits.astype(np.int32))), bits
+
+
+@pytest.mark.parametrize("R,rounds", [(1, 1), (3, 5), (37, 1023), (64, 1024),
+                                      (19, 1025), (133, 2051), (5, 4096),
+                                      (2, 32768), (300, 6)])
+def test_k15_equals_plain_versions(dev, R, rounds):
+    """K15's two entry points == their plain versions: rounds off the
+    4-slot loads and off the 1,024-slot tile, units with no valid slot,
+    with and without a tail; the rows at the widest stream's width and
+    wider, the payload on the streams' words."""
+    bubbles, bits = _k15_bubbles(dev, R, rounds, R * rounds)
+    n_words = (bits.astype(np.int64) + 31) // 32
+    for W in (int(n_words.max()), int(n_words.max()) + 7):
+        _build.LAUNCHES.clear()
+        got = stages_cuda.compact_bubbles(*bubbles, W)
+        assert _build.LAUNCHES["compact_bubbles"] == (W > 0)
+        assert _equal(got, bitpack.compact_bubbles(*bubbles, W))
+    total = int(n_words.sum())
+    _build.LAUNCHES.clear()
+    got = stages_cuda.bubbles_to_payload(*bubbles)
+    assert _build.LAUNCHES["bubbles_to_payload"] == 1
+    ref = bitpack.bubbles_to_payload(*bubbles)
+    assert got.shape == ref.shape
+    assert _equal(got[:total], ref[:total])
+
+
+@pytest.mark.parametrize("n", [1, 7, 333, 8191, 8192])
+def test_k15_on_k6_output_equals_plain_versions_and_k3(dev, n):
+    """K15 on K6's own output (odd n: a last round of one code), equal to
+    the plain versions, and the rows K3's words."""
+    units, nv, codes, lengths, cl = _tile_case(dev, "skewed", 33, n)
+    bubbles = encode_cuda.bubble_pack(cl)
+    W = bitpack.words_for_block(n)
+    rows = stages_cuda.compact_bubbles(*bubbles, W)
+    assert _equal(rows, bitpack.compact_bubbles(*bubbles, W))
+    assert _equal(rows, encode_cuda.pack_units(units, nv, codes, lengths)[0])
+    total = int(((bubbles[3].long() + 31) // 32).sum())
+    got = stages_cuda.bubbles_to_payload(*bubbles)[:total]
+    assert _equal(got, bitpack.bubbles_to_payload(*bubbles)[:total])
+
+
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
 def test_stage_kernels_on_an_engine_batch(dev, mode):
     """Each stage kernel == its plain version on one engine batch of each
@@ -653,17 +747,19 @@ def test_stage_kernels_on_an_engine_batch(dev, mode):
 
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
 def test_engine_launches_each_stage_kernel(dev, mode):
-    """One engine.encode launches K13 and K10+K8 once each; one
-    engine.decode K13 and K9 once each, and K14 once, literal rows being
-    present (order-0 on noise; Markov with every pair coded in 8 bits,
-    every unit a literal)."""
+    """One engine.encode launches its table build once (K13 alone on
+    given lengths, the fused build on the device's counts) and K10+K8
+    once; one engine.decode K13 and K9 once each, and K14 once, literal
+    rows being present (order-0 on noise; Markov with every pair coded in
+    8 bits, every unit a literal)."""
     data = _data(300_001, 13)
     st = engine.stage(data, mode=mode, device=dev)
     lengths = (None if mode == "huffman"
                else np.full((256, 256), 8, np.uint8))
     _build.LAUNCHES.clear()
     enc = engine.encode(st, lengths=lengths)
-    assert _build.LAUNCHES["canonical_tables"] == 1
+    assert _build.LAUNCHES["canonical_tables"] == (lengths is not None)
+    assert _build.LAUNCHES["code_tables"] == (lengths is None)
     assert _build.LAUNCHES["compact_units"] == 1
     _build.LAUNCHES.clear()
     out = engine.decode(enc)
@@ -679,15 +775,20 @@ def test_engine_launches_each_stage_kernel(dev, mode):
 @pytest.mark.parametrize("du", [None, 65536])
 def test_engine_on_the_card_never_calls_a_plain_stage(dev, monkeypatch, mode,
                                                       pack_method, du):
-    """Every plain version of the four stage kernels, and the plain
-    helpers they are built from, raise: the engine's encode and decode on
-    the card still run (and round-trip), so its path never reaches
-    them. (The container's metadata coder, on the host, builds its
-    canonical code with `canonical_codes`: no container is built here.)"""
+    """Every plain version of the stage kernels (K13, K10+K8, K9/K12,
+    K14, K15) and of the table builds (K11, the fused build), and the
+    plain helpers they are built from, raise: the engine's encode and
+    decode on the card still run (and round-trip), on every route, so its
+    path never reaches them. (The container's metadata coder, on the
+    host, builds its canonical code with `canonical_codes`: no container
+    is built here.)"""
     def boom(*a, **k):
         raise AssertionError("a plain stage ran on the card")
     for mod, names in ((canonical, ("canonical_codes",
                                     "canonical_tables_plain")),
+                       (huffman_cuda, ("code_lengths_plain",
+                                       "code_tables_plain",
+                                       "rescale_plain")),
                        (bitpack, ("substitute_raw_units", "literal_words",
                                   "device_compact_words",
                                   "compact_units_plain",
@@ -695,7 +796,8 @@ def test_engine_on_the_card_never_calls_a_plain_stage(dev, monkeypatch, mode,
                                   "device_expand_words",
                                   "expand_units_plain",
                                   "words_to_unit_bytes",
-                                  "literal_rows_plain"))):
+                                  "literal_rows_plain", "compact_bubbles",
+                                  "bubbles_to_payload"))):
         for name in names:
             monkeypatch.setattr(mod, name, boom)
     data = _data(200_003, 14)

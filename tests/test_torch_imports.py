@@ -32,6 +32,7 @@ def test_the_port_imports_no_jax():
     assert got["forbidden"] == []
     for name in ("api", "engine", "cli", "hybrid", "serve", "utils.metrics",
                  "parallel.dryrun", "parallel.pipeline",
+                 "models.entropy", "ops.kernels.huffman_cuda",
                  "ops.kernels.decode_cuda", "ops.kernels.probes_cuda",
                  "ops.kernels.tables_cuda", "ops.kernels.stages_cuda",
                  "bench.probes", "bench.loop_calib", "bench.mosaic_probe",
