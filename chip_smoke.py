@@ -92,6 +92,20 @@ calls, after building and checking every kernel those paths run:
      the JAX reference's container, timed in turns through engine.encode
      (the measurements behind `EntropyModel.lengths_for`), and
      api.compress timed
+  param_grid: the container's parameter grid (`utils.corpus.grid_inputs`
+     and `grid_cases`: 7 inputs from empty to 300,001 bytes, both modes,
+     block sizes 1 B to 1 MiB, every decode unit the port accepts, crc on
+     and off; the digests of `corpus.GRID_TABLE`, written by the JAX
+     reference and held to it by tests/test_torch_param_grid.py) on the
+     card: each case through api.compress with each pack method and
+     api.decompress, and on block sizes 1, 16 and 64 KB through hybrid
+     (0.5), the sharded pipeline on a world of one and the file functions
+     (chained 100,000-byte segments); every container's length and
+     sha256 the table's, every decode its input, the codec and stage
+     kernels each launched (units of 1 and 2 bytes and widths off 16
+     bytes take each kernel's scalar branch); the cases per route, the
+     launches, the phase's seconds and the 300,001 units of the corpus
+     at block_size 1 timed
   8. host bytes: the chunked api.compress / api.decompress (at least two
      chunks, the fused table build once, its tables handed to every
      chunk: K13 never), host bytes in and out, the reference container,
@@ -1471,6 +1485,109 @@ def phase_small(torch, dev) -> None:
              compress_s=api_s, container_bytes=ref_len, sha256=ref_sha)
 
 
+def phase_param_grid(torch, dev) -> None:
+    """The parameter grid on the card (see the module docstring): any
+    container or decode that differs from the table or the input
+    raises."""
+    import collections
+    from mhc_tpu_torch import api, engine, hybrid
+    from mhc_tpu_torch.ops.kernels import _build
+    from mhc_tpu_torch.parallel import pipeline
+    from mhc_tpu_torch.utils import corpus
+    table = corpus.load_grid_table()
+    inputs = corpus.grid_inputs()
+    src, dst, back = (os.path.join(_build.BUILD_DIR, f"param_grid.{n}")
+                      for n in ("in", "mhc", "back"))
+    cases: collections.Counter = collections.Counter()
+
+    def check(route: str, key: str, blob: bytes, want: list) -> None:
+        got = [len(blob), hashlib.sha256(blob).hexdigest()]
+        if got != want:
+            raise AssertionError(f"param_grid {route} {key}: container "
+                                 f"{got} differs from the reference's "
+                                 f"{want}")
+        cases[route] += 1
+
+    def decoded(route: str, key: str, out: bytes, x: bytes) -> None:
+        if out != x:
+            raise AssertionError(f"param_grid {route} {key}: the decode "
+                                 "is not the input")
+        cases[route] += 1
+
+    def routes(key: str, x: bytes, want: list, kw: dict) -> None:
+        blob = hybrid.compress(x, host_fraction=0.5, device=dev, **kw)
+        check("hybrid.compress", key, blob, want)
+        decoded("hybrid.decompress", key, hybrid.decompress(
+            blob, host_fraction=0.5, device=dev), x)
+        check("compress_sharded", key,
+              pipeline.compress_sharded(x, device=dev, **kw), want)
+        decoded("decompress_sharded", key,
+                pipeline.decompress_sharded(blob, device=dev), x)
+        with open(src, "wb") as f:
+            f.write(x)
+        api.compress_file(src, dst, segment_size=corpus.GRID_SEGMENT,
+                          device=dev, **kw)
+        with open(dst, "rb") as f:
+            check("compress_file", key, f.read(),
+                  table["files"][key] if len(x) > corpus.GRID_SEGMENT
+                  else want)
+        api.decompress_file(dst, back, device=dev)
+        with open(back, "rb") as f:
+            decoded("decompress_file", key, f.read(), x)
+
+    def grid() -> None:
+        for mode in corpus.GRID_MODES:
+            for bs in corpus.GRID_BLOCK_SIZES:
+                for name, x in inputs.items():
+                    for arg, du, crc in corpus.grid_cases(mode, bs):
+                        key = corpus.grid_key(name, mode, bs, du, crc)
+                        want = table["containers"][key]
+                        kw = dict(mode=mode, block_size=bs,
+                                  decode_unit=arg, crc=crc)
+                        for pm in engine.PACK_METHODS:
+                            blob = api.compress(x, device=dev,
+                                                pack_method=pm, **kw)
+                            check(f"api.compress/{pm}", key, blob, want)
+                        decoded("api.decompress", key,
+                                api.decompress(blob, device=dev), x)
+                        if bs in corpus.GRID_ROUTE_BLOCK_SIZES:
+                            routes(key, x, want, kw)
+
+    torch.cuda.empty_cache()
+    (_, seconds), launches = run_counted(torch, lambda: wall_s(torch, grid))
+    # every codec and stage kernel ran on the grid's widths; K11 alone
+    # runs only on `lengths_for`
+    require_launches("param_grid", launches, {
+        k: "none" if k == "code_lengths" else "some"
+        for k in KERNELS if "/" not in k})
+    per_route = dict(cases)
+    for p in (src, dst, back):
+        os.remove(p)
+    # the corpus at block_size 1: 300,001 units, a block per unit in
+    # K10+K8, K9 and K15
+    x = inputs["corpus"]
+    unit_1 = {}
+    for mode in corpus.GRID_MODES:
+        want = table["containers"][corpus.grid_key("corpus", mode, 1, 1,
+                                                   True)]
+        for pm in engine.PACK_METHODS:
+            blob, t = wall_s(torch, lambda: api.compress(
+                x, mode=mode, block_size=1, device=dev, pack_method=pm))
+            check(f"api.compress/{pm}", f"corpus {mode} bs=1 (timed)",
+                  blob, want)
+            unit_1[f"{mode}/compress/{pm}_s"] = t
+        out, t = wall_s(torch, lambda: api.decompress(blob, device=dev))
+        decoded("api.decompress", f"corpus {mode} bs=1 (timed)", out, x)
+        unit_1[f"{mode}/decompress_s"] = t
+    emit("param_grid", n_cases=sum(
+        len(corpus.grid_cases(m, bs)) * len(inputs)
+        for m in corpus.GRID_MODES for bs in corpus.GRID_BLOCK_SIZES),
+        cases_per_route=per_route, launches={
+            k: n for k, n in launches.items() if n}, seconds=seconds,
+        corpus_block_size_1=dict(n_bytes=len(x), n_units=len(x),
+                                 **unit_1))
+
+
 def sharded_worker(argv) -> None:
     """One rank of the `sharded` phase (`chip_smoke.py --sharded-rank
     RANK WORLD BACKEND STORE CORPUS OUT_DIR MODES`): compress_sharded and
@@ -2549,6 +2666,7 @@ def run_phases(torch, plains, plains_path: str, started: float) -> dict:
     lengths_only_launches = phase_breakdown(torch, data, dev)
     phase_redesign_turns(torch, data, dev)
     phase_small(torch, dev)
+    phase_param_grid(torch, dev)
     phase_host_bytes(torch, data, dev)
     corpus_path = os.path.join(_build.BUILD_DIR, "corpus_100mb.bin")
     with open(corpus_path, "wb") as f:

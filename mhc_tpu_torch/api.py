@@ -104,7 +104,11 @@ def blockify(data, block_size: int):
 
 def resolve_decode_unit(block_size: int, decode_unit: int | None,
                         markov: bool = True) -> int:
-    """Clamp the decode unit to the block size; units must divide blocks."""
+    """Clamp the decode unit to the block size; units must divide blocks.
+    A unit of 1 or 2 bytes must be the whole block: the substreams of a
+    block may be stored as literal words, which such a unit cannot fill
+    (the reference fails there with a TypeError; the port refuses the
+    parameters before any work)."""
     du = decode_unit or (DEFAULT_DECODE_UNIT if markov
                          else DEFAULT_DECODE_UNIT_ORDER0)
     du = min(du, block_size)
@@ -112,6 +116,10 @@ def resolve_decode_unit(block_size: int, decode_unit: int | None,
         raise ValueError(
             f"decode_unit {du} must be a power of two dividing "
             f"block_size {block_size}")
+    if du < 4 and du != block_size:
+        raise ValueError(
+            f"decode_unit {du} under block_size {block_size}: a unit of "
+            "fewer than 4 bytes must be the whole block")
     # the u16 unit index requires a worst-case unit stream < 64 KB
     if du != block_size and du * MAX_CODE_LEN // 8 >= (1 << 16):
         raise ValueError(f"decode_unit {du} too large for u16 unit index")
@@ -444,6 +452,8 @@ def compress_file(in_path: str, out_path: str, mode: str = "markov",
     writing; `host_fraction` routes that share of each segment's units
     to the hybrid host/device executor. The containers are the same
     either way."""
+    # the decode unit is checked before any file is opened
+    resolve_decode_unit(block_size, decode_unit, get_model(mode).markov)
     mesh = _sharded_mesh(sharded, mesh, host_fraction, device)
     total_in = os.path.getsize(in_path)
     total_out = 0

@@ -35,8 +35,11 @@ def words_for_block(block_size: int, max_len: int = MAX_CODE_LEN) -> int:
 
 
 def _be_words(units: torch.Tensor) -> torch.Tensor:
-    """(R, du) uint8 -> (R, du/4) int32 big-endian words."""
+    """(R, du) uint8, du a multiple of 4 -> (R, du/4) int32 big-endian
+    words."""
     R, du = units.shape
+    if du % 4:
+        raise ValueError(f"rows of {du} bytes are not whole words")
     return units.reshape(R, du // 4, 4).flip(-1).contiguous().view(
         torch.int32).reshape(R, du // 4)
 
@@ -168,9 +171,14 @@ def compact_units_plain(words: torch.Tensor, units: torch.Tensor,
     """K10+K8's plain version: `substitute_raw_units`' literal rows on
     the host's literal flags, then `device_compact_words` on the host's
     word offsets ((R + 1,) int64, the total last). Returns the (total,)
-    int32 dense payload."""
-    rows = torch.where(literal.bool()[:, None],
-                       literal_words(units, n_valid, words.shape[1]), words)
+    int32 dense payload. Literal rows are built for the flagged units
+    alone: a unit of 1 or 2 bytes (decode_unit == block_size) is never
+    flagged and has no whole word of bytes."""
+    rows = words
+    lit = literal.bool()
+    if lit.any():
+        rows = words.clone()
+        rows[lit] = literal_words(units[lit], n_valid[lit], words.shape[1])
     out = device_compact_words(rows, word_offsets[1:] - word_offsets[:-1])
     if out.numel() != total:
         raise ValueError(f"word offsets give {out.numel()} words, not "

@@ -6,12 +6,14 @@ torch and mhc_tpu_torch only, so it also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 import mhc_tpu_torch
-from mhc_tpu_torch import api, engine, hybrid
+from mhc_tpu_torch import api, engine, hybrid, serve
 from mhc_tpu_torch.bench import loop_calib, mosaic_probe, probes, vpu_probe
 from mhc_tpu_torch.models.entropy import get_model
 from mhc_tpu_torch import container
@@ -21,6 +23,7 @@ from mhc_tpu_torch.ops.kernels import (_build, decode_cuda, encode_cuda,
                                        histogram_cuda, huffman_cuda,
                                        probes_cuda, stages_cuda, tables_cuda)
 from mhc_tpu_torch.parallel import pipeline
+from mhc_tpu_torch.utils import corpus
 
 pytestmark = pytest.mark.cuda
 
@@ -804,6 +807,99 @@ def test_engine_on_the_card_never_calls_a_plain_stage(dev, monkeypatch, mode,
     st = engine.stage(data, mode=mode, decode_unit=du, device=dev)
     enc = engine.encode(st, pack_method=pack_method)
     assert engine.fetch_bytes(enc, engine.decode(enc)) == data
+
+
+# ---------------------------------------------------------------------------
+# F4: units of 1 and 2 bytes (decode_unit == block_size), the kernels'
+# scalar branches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", corpus.GRID_MODES)
+@pytest.mark.parametrize("block_size", [1, 2])
+def test_f4_block_sizes_1_and_2_write_the_reference_container(dev, mode,
+                                                               block_size):
+    """api.compress at block sizes 1 and 2 (300,001 units and 150,001) on
+    the card writes the CPU's container, which is the reference's (the
+    parameter grid's table), with each pack method; api.decompress on
+    the card reads it."""
+    x = corpus.grid_inputs()["corpus"]
+    want = corpus.load_grid_table()["containers"][corpus.grid_key(
+        "corpus", mode, block_size, block_size, True)]
+    blob = api.compress(x, mode=mode, block_size=block_size, device="cpu")
+    assert [len(blob), hashlib.sha256(blob).hexdigest()] == want
+    for pm in engine.PACK_METHODS:
+        assert api.compress(x, mode=mode, block_size=block_size, device=dev,
+                            pack_method=pm) == blob
+    assert api.decompress(blob, device=dev) == x
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+@pytest.mark.parametrize("n_out", [1, 2])
+def test_f4_k7_at_unit_widths_1_and_2(dev, mode, n_out):
+    """K7's scalar store path at units of 1 and 2 bytes against its plain
+    version, on the engine's rows."""
+    st = engine.stage(_data(20_001, n_out), mode=mode, block_size=n_out,
+                      device=dev)
+    enc = engine.encode(st)
+    words, n_dec, _, t = engine.decode_inputs(enc)
+    args = (words, n_dec, t["lim"], t["base"], t["first_code"],
+            t["sorted_syms"])
+    markov = get_model(mode).markov
+    out = decode_cuda.decode_units(*args, n_out=n_out, markov=markov)
+    assert _equal(out, decode_cuda.decode_units_plain(*args, n_out=n_out,
+                                                      markov=markov))
+    assert engine.fetch_bytes(enc, out) == _data(20_001, n_out)
+
+
+@pytest.mark.parametrize("du", [1, 2])
+def test_f4_compact_units_at_du_1_and_2_without_literals(dev, du):
+    """K10+K8 at units of 1 and 2 bytes (the substreams of no block, so
+    no literal rows) against its plain version on the card and on the
+    CPU."""
+    R, W = 1001, bitpack.words_for_block(du)
+    rng = np.random.default_rng(du)
+    words = rng.integers(-(1 << 31), 1 << 31, (R, W),
+                         dtype=np.int64).astype(np.int32)
+    u = rng.integers(0, 256, (R, du), dtype=np.uint8)
+    nv = np.full(R, du, np.int32)
+    nv[-1] = 1
+    wl = (rng.integers(0, du * 15 + 1, R) + 31) // 32
+    offs = np.concatenate([[0], np.cumsum(wl)])
+    host = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (words, u, nv, offs, np.zeros(R, bool))]
+    got = stages_cuda.compact_units(*(a.to(dev) for a in host),
+                                    int(offs[-1]))
+    want = stages_cuda.compact_units(*host, int(offs[-1]))
+    assert _equal(got.cpu(), want)
+    assert _equal(got, bitpack.compact_units_plain(
+        *(a.to(dev) for a in host), int(offs[-1])))
+
+
+@pytest.mark.parametrize("mode", corpus.GRID_MODES)
+def test_f4_served_compress_at_block_size_1(dev, mode):
+    """POST /compress?block_size=1 on the card answers 200 with the
+    reference's bytes (the parameter grid's table), where the handler
+    dropped the connection before."""
+    import threading
+    import urllib.request
+    x = corpus.grid_inputs()["skew4"]
+    srv = serve.make_server("127.0.0.1", 0, device=dev)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_port}/compress?mode={mode}"
+            "&block_size=1", data=x, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert r.status == 200
+            blob = r.read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    assert [len(blob), hashlib.sha256(blob).hexdigest()] == (
+        corpus.load_grid_table()["containers"][corpus.grid_key(
+            "skew4", mode, 1, 1, True)])
 
 
 # ---------------------------------------------------------------------------
