@@ -133,7 +133,12 @@ calls, after building and checking every kernel those paths run:
      each crafted container of `crafted_containers` (over-full code
      lengths in both modes, a negative unit length, an orig_len of 128 MB
      with no payload, units under their fewest bytes, a payload size
-     past 2**63); then a clean decode works
+     past 2**63); F5's containers (`f5_containers`, through api and
+     hybrid: du_log2 40, 63, 64 and 200 and a block size of 0 refused
+     before any launch, a legacy block size of 2**31 and 2**32 - 1
+     decoded with K7 at n_out 528; each within 1 MiB of peak
+     allocation) and the writers' block sizes 0 and 2**32 (refused before
+     any launch); then a clean decode works
   12. oracle: `make -C oracle` builds the single-core C++ oracle (a
      failed build fails the run), and each container is no larger than
      the oracle's (em for Markov, e0 for order-0)
@@ -1912,6 +1917,41 @@ def payload_size_overflow(blob: bytes) -> bytes:
     return with_index(blob, packed_index64(words))
 
 
+# F5's containers (ROADMAP.md section 3): a header field that sized the
+# decode with no bound. The base is F5_TEXT in 4 KB blocks, in 1 KB decode
+# units (the substream layout) or in one 4 KB unit (the legacy layout).
+F5_TEXT = b"hello world, hello markov " * 20
+
+
+def f5_source(legacy: bool) -> bytes:
+    from mhc_tpu_torch import api
+    return api.compress(F5_TEXT, block_size=4096,
+                        decode_unit=4096 if legacy else 1024, device="cpu")
+
+
+def with_field(blob: bytes, offset: int, fmt: str, value: int) -> bytes:
+    """`blob` with the header field at `offset` rewritten to `value`."""
+    import struct
+    out = bytearray(blob)
+    struct.pack_into(fmt, out, offset, value)
+    return bytes(out)
+
+
+def f5_containers() -> dict:
+    """name -> (container, what its ValueError must say, or None where it
+    decodes to F5_TEXT): (a) the substream container's du_log2 (byte 7)
+    rewritten to 40, 63, 64 or 200; (b) the legacy container's block size
+    (bytes 16-19) rewritten to 0; (d) to 2**31 or 2**32 - 1, where the one
+    short block decodes in rows of its own length."""
+    sub, leg = f5_source(False), f5_source(True)
+    cases = {f"du_log2_{v}": (with_field(sub, 7, "<B", v), "decode unit")
+             for v in (40, 63, 64, 200)}
+    cases["block_size_0"] = (with_field(leg, 16, "<I", 0), "block size")
+    for v in (1 << 31, (1 << 32) - 1):
+        cases[f"legacy_block_size_{v}"] = (with_field(leg, 16, "<I", v), None)
+    return cases
+
+
 def crafted_containers() -> dict:
     """name -> (crafted container, what its ValueError must say)."""
     markov, order0 = craft_source("markov"), craft_source("huffman")
@@ -1935,7 +1975,8 @@ def phase_corrupt(torch, blob: bytes, data: bytes, du64k_blob: bytes,
     of 20.9 M words, were its length believed) raises before anything is
     allocated for it; so do the crafted containers (over-full code
     lengths, a negative unit length, an orig_len the index cannot hold,
-    units shorter than their symbols, a payload size past 2**63)."""
+    units shorter than their symbols, a payload size past 2**63); F5's
+    cases run in `f5_cases`."""
     from mhc_tpu_torch import api, container
     meta = container.parse_container(blob)
     flipped = bytearray(blob)
@@ -1980,12 +2021,109 @@ def phase_corrupt(torch, blob: bytes, data: bytes, du64k_blob: bytes,
             seen[name] = str(e)
         else:
             raise AssertionError(f"corrupt {name}: decoded without error")
+    t0 = time.perf_counter()
+    f5 = f5_cases(torch, dev)
+    f5["f5_wall_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     if api.decompress(blob, device=dev) != data:
         raise AssertionError("corrupt: the clean decode afterwards failed")
     emit("corrupt", errors=seen, clean_decode_after=True,
          unit_claims_payload_max_memory_allocated={"before": before,
-                                                   "after": after})
+                                                   "after": after}, **f5)
+
+
+def f5_cases(torch, dev) -> dict:
+    """F5 on the card (ROADMAP.md section 3): each of f5_containers()
+    through api.decompress and hybrid.decompress (0.5) is refused with
+    ValueError before any launch, with at most 1 MiB of peak allocation
+    over the case's start, or (a legacy block size of 2**31 or 2**32 - 1)
+    decodes to F5_TEXT with K7 at n_out engine.row_width (528: the
+    520-byte block rounded up to 16), with at most 1 MiB more peak
+    allocation than the same route's decode of the clean legacy container
+    (whose own decode tables take ~1.1 MB: Markov's K13 table set,
+    835,584 B, and K7's table, 203,776 B); no CUDA error; and api.compress
+    and hybrid.compress refuse block sizes of 0 and 2**32 before any
+    kernel launch and allocation."""
+    from mhc_tpu_torch import api, hybrid
+    from mhc_tpu_torch.ops.kernels import decode_cuda
+    real_decode = decode_cuda.decode_units
+    widths = []
+
+    def spy(*args, n_out, **kwargs):
+        widths.append(n_out)
+        return real_decode(*args, n_out=n_out, **kwargs)
+
+    def measured(name, fn, limit=None):
+        """(fn's bytes or its ValueError's text, {kernel: launches}, peak
+        bytes over the start), the case failed past `limit` bytes."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.max_memory_allocated()
+
+        def run():
+            try:
+                return fn()
+            except ValueError as e:
+                return str(e)
+        out, launches = run_counted(torch, run)
+        over = torch.cuda.max_memory_allocated() - before
+        if limit is not None and over > limit:
+            raise AssertionError(f"corrupt {name}: {over} bytes allocated")
+        return out, {k: n for k, n in launches.items() if n}, over
+
+    routes = {"api": lambda b: api.decompress(b, device=dev),
+              "hybrid": lambda b: hybrid.decompress(b, host_fraction=0.5,
+                                                    device=dev)}
+    clean = f5_source(True)
+    clean_peak = {}
+    for route, fn in routes.items():
+        out, _, clean_peak[route] = measured(f"clean/{route}",
+                                             lambda: fn(clean))
+        if out != F5_TEXT:
+            raise AssertionError(f"corrupt clean/{route}: {out!r:.80}")
+    decoded, writers = {"clean_legacy_peak_bytes": clean_peak}, {}
+    decode_cuda.decode_units = spy
+    try:
+        for name, (bad, want) in f5_containers().items():
+            for route, fn in routes.items():
+                case = f"{name}/{route}"
+                widths.clear()
+                out, launches, over = measured(
+                    case, lambda: fn(bad), limit=None if want is None
+                    else 1 << 20)
+                if want is not None:
+                    if not isinstance(out, str) or want not in out \
+                            or launches:
+                        raise AssertionError(f"corrupt {case}: {out!r:.80}, "
+                                             f"launches {launches}")
+                    decoded[case] = {"error": out, "peak_bytes": over}
+                elif (out != F5_TEXT or widths != [528]
+                      or launches.get("decode_units") != 1
+                      or over > clean_peak[route] + (1 << 20)):
+                    raise AssertionError(f"corrupt {case}: {out!r:.80}, "
+                                         f"K7 n_out {widths}, launches "
+                                         f"{launches}, {over} bytes")
+                else:
+                    decoded[case] = {"decoded": len(out),
+                                     "k7_n_out": widths[0],
+                                     "launches": launches, "peak_bytes": over}
+    finally:
+        decode_cuda.decode_units = real_decode
+    for bs in (0, 1 << 32):
+        for route, fn in (
+                ("api", lambda: api.compress(F5_TEXT, block_size=bs,
+                                             device=dev)),
+                ("hybrid", lambda: hybrid.compress(F5_TEXT, block_size=bs,
+                                                   device=dev))):
+            case = f"compress_block_size_{bs}/{route}"
+            out, launches, over = measured(case, fn, limit=0)
+            if not isinstance(out, str) or "block_size" not in out \
+                    or launches or over:
+                raise AssertionError(f"corrupt {case}: {out!r:.80}, launches "
+                                     f"{launches}, {over} bytes")
+            writers[case] = out
+    return {"f5": decoded, "f5_writers": writers}
 
 
 def phase_oracle(blobs: dict, corpus_path: str) -> None:

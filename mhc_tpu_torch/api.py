@@ -104,15 +104,25 @@ def blockify(data, block_size: int):
 
 def resolve_decode_unit(block_size: int, decode_unit: int | None,
                         markov: bool = True) -> int:
-    """Clamp the decode unit to the block size; units must divide blocks.
-    A unit of 1 or 2 bytes must be the whole block: the substreams of a
-    block may be stored as literal words, which such a unit cannot fill
-    (the reference fails there with a TypeError; the port refuses the
-    parameters before any work)."""
+    """The one parameter check of every writer (`compress`, the file and
+    hybrid functions, the sharded pipeline), run before any byte is read
+    or staged; returns the decode unit. `block_size` must be an int and a
+    power of two in [1, 2**32): the header stores it as a u32. The unit
+    (None: the mode's default) is clamped to the block and must be a
+    power of two dividing it; a unit of 1 or 2 bytes must be the whole
+    block: the substreams of a block may be stored as literal words,
+    which such a unit cannot fill (the reference fails there with a
+    TypeError). Anything else raises ValueError."""
+    if not _is_int(block_size) or not 1 <= block_size < 1 << 32 \
+            or block_size & (block_size - 1):
+        raise ValueError(f"block_size {block_size!r} must be a power of "
+                         "two in [1, 2**32)")
+    if decode_unit is not None and not _is_int(decode_unit):
+        raise ValueError(f"decode_unit {decode_unit!r} is not an int")
     du = decode_unit or (DEFAULT_DECODE_UNIT if markov
                          else DEFAULT_DECODE_UNIT_ORDER0)
     du = min(du, block_size)
-    if block_size % du != 0 or du & (du - 1):
+    if du <= 0 or block_size % du != 0 or du & (du - 1):
         raise ValueError(
             f"decode_unit {du} must be a power of two dividing "
             f"block_size {block_size}")
@@ -123,7 +133,11 @@ def resolve_decode_unit(block_size: int, decode_unit: int | None,
     # the u16 unit index requires a worst-case unit stream < 64 KB
     if du != block_size and du * MAX_CODE_LEN // 8 >= (1 << 16):
         raise ValueError(f"decode_unit {du} too large for u16 unit index")
-    return du
+    return int(du)
+
+
+def _is_int(x) -> bool:
+    return isinstance(x, (int, np.integer)) and not isinstance(x, bool)
 
 
 def _tracer():
@@ -224,10 +238,8 @@ def compress(data: bytes, mode: str = "markov",
     "pallas" (K5 then K6); all write the same bytes."""
     from . import engine
     model = get_model(mode)
-    pack_method = engine.check_pack_method(pack_method)
-    if block_size <= 0 or block_size & (block_size - 1):
-        raise ValueError("block_size must be a power of two")
     du = resolve_decode_unit(block_size, decode_unit, model.markov)
+    pack_method = engine.check_pack_method(pack_method)
     if len(data) == 0:
         return _empty_container(model, block_size, du,
                                 zlib.crc32(b"") if crc else None)
@@ -334,9 +346,20 @@ def parsed_chunk(meta, lo: int, hi: int, payload: torch.Tensor):
 def check_parsed(meta) -> tuple:
     """(decode unit, per-unit stored bytes, payload start of each unit
     and of the end) of a parsed container with data, after the checks
-    that must pass before anything is sized by its index."""
+    that every decode route (this module's, the files', the sharded and
+    the hybrid one) runs before anything is sized by its header or
+    index. A block size of 0, and in the substream layout a unit that no
+    writer of either package emits (not under the block, under 4 bytes,
+    or too long for the u16 index: `resolve_decode_unit`'s bounds),
+    raise ValueError."""
     from . import engine
+    if meta.block_size == 0:
+        raise ValueError("mhc: corrupt container (block size)")
     du = meta.decode_unit or meta.block_size
+    if meta.decode_unit is not None and (
+            not 4 <= du < meta.block_size
+            or du * MAX_CODE_LEN // 8 >= 1 << 16):
+        raise ValueError("mhc: corrupt container (decode unit)")
     byte_lens = meta.byte_lengths.astype(np.int64)
     if len(byte_lens) != -(-meta.orig_len // du):
         raise ValueError("mhc: corrupt container (unit count)")
@@ -354,6 +377,9 @@ def decompress(blob: bytes, verify: bool = True, device=None) -> bytes:
     raises without one)."""
     meta = container.parse_container(blob)
     if meta.orig_len == 0:
+        # an orig_len rewritten to 0 still meets the crc of the bytes
+        if verify:
+            container.verify_crc(b"", meta)
         return b""
     dev = resolve_device(device)
     # before any upload or allocation
@@ -449,7 +475,8 @@ def compress_file(in_path: str, out_path: str, mode: str = "markov",
     `sharded` splits each segment's units over the ranks of `mesh`
     (None: `parallel.mesh.make_mesh(device)`, the initialised world or a
     world of one), every rank reading the input and local rank 0
-    writing; `host_fraction` routes that share of each segment's units
+    writing, each rank returning once the output is closed;
+    `host_fraction` routes that share of each segment's units
     to the hybrid host/device executor. The containers are the same
     either way."""
     # the decode unit is checked before any file is opened
@@ -483,22 +510,37 @@ def compress_file(in_path: str, out_path: str, mode: str = "markov",
             n_segments += 1
             if len(seg) < segment_size:
                 break
+    if mesh is not None:
+        # every rank returns once local rank 0 has closed the output
+        from .parallel import pipeline
+        pipeline.barrier(mesh)
     return {"orig_bytes": total_in, "compressed_bytes": total_out,
             "ratio": total_out / max(total_in, 1),
             "n_segments": n_segments}
 
 
+def _rest_of(f) -> int | None:
+    """The bytes from f's position to its end (None: f is no file)."""
+    if not hasattr(f, "fileno"):
+        return None
+    return os.fstat(f.fileno()).st_size - f.tell()
+
+
 def _next_segment(f, buf: bytes) -> tuple[bytes | None, bytes]:
     """Read exactly one container from file f (with `buf` carried over
     from the previous read). Returns (segment bytes or None at EOF, new
-    carry). Memory is bounded by one segment, never the whole file."""
+    carry). Memory is bounded by one segment, never the whole file; the
+    file's size bounds the header's claims."""
     if not buf:
         buf = f.read(1 << 18)
         if not buf:
             return None, b""
     while True:
+        rest = _rest_of(f)
         try:
-            meta = container.parse_container(buf, head_only=True)
+            meta = container.parse_container(
+                buf, head_only=True,
+                avail=None if rest is None else len(buf) + rest)
             break
         except ValueError as e:
             if "truncated" not in str(e):

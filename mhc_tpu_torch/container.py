@@ -427,11 +427,15 @@ def build_container(mode: int, orig_len: int, block_size: int,
     return b"".join(parts)
 
 
-def parse_container(blob: bytes, head_only: bool = False) -> ContainerMeta:
+def parse_container(blob: bytes, head_only: bool = False,
+                    avail: int | None = None) -> ContainerMeta:
     """Parse a container. With head_only=True, `blob` need only cover the
     header + tables + index (the payload may be absent); the returned
     meta has crc32=None but container_size() is exact — this is what lets
-    decompress_file stream segment-by-segment without a full-file read."""
+    decompress_file stream segment-by-segment without a full-file read.
+    `avail` (head_only): the most bytes the container can span, from its
+    start (the rest of the file), which bounds the unit count as the
+    blob's length does on a full parse."""
     if len(blob) < _HEADER.size:
         raise ValueError("mhc: truncated container (no header)")
     magic, version, mode, flags, du_log2, orig_len, block_size, n_blocks = \
@@ -454,7 +458,8 @@ def parse_container(blob: bytes, head_only: bool = False) -> ContainerMeta:
         n_units = (orig_len + decode_unit - 1) // decode_unit
         # every unit stores a byte at least: an index longer than the
         # rest of the container is not read (nor allocated)
-        if not head_only and n_units > len(blob) - off:
+        span = avail if head_only else len(blob)
+        if span is not None and n_units > span - off:
             raise ValueError("mhc: truncated container (unit index)")
         bit_lengths = np.zeros((0,), np.int64)
         if flags & FLAG_ENTROPY_INDEX:

@@ -325,15 +325,26 @@ def _decode_inputs(enc: EncodeResult):
     return words, n_dec, raw, tables, rows
 
 
+def row_width(enc: EncodeResult) -> int:
+    """The width of the decoded rows: the decode unit, or, where `enc`
+    holds fewer bytes than one unit (its one unit is short), those bytes
+    rounded up to 16, so that a legacy container's short block is never
+    sized by the block size in its header. The rounding keeps K7's
+    16-byte stores and K14's whole words: a literal unit's row holds its
+    n_valid bytes, so it is never wider than this (units of 1 or 2 bytes
+    are whole blocks, with no literals)."""
+    return min(enc.decode_unit, -(-enc.orig_len // 16) * 16)
+
+
 def decode(enc: EncodeResult) -> torch.Tensor:
     """Tables and expansion -> decode (K7m or K7o, literal units
-    skipped) -> literal rows (K14). Returns the (n_units, decode_unit)
+    skipped) -> literal rows (K14). Returns the (n_units, row_width(enc))
     uint8 rows on the payload's device, zero past each unit's length
     (fetch_bytes trims)."""
     words, n_dec, raw, tables, rows = _decode_inputs(enc)
     out = decode_cuda.decode_units(
         words, n_dec, tables["lim"], tables["base"], tables["first_code"],
-        tables["sorted_syms"], n_out=enc.decode_unit,
+        tables["sorted_syms"], n_out=row_width(enc),
         markov=get_model(enc.mode).markov)
     if raw.any():
         stages_cuda.literal_rows(out, words, rows)

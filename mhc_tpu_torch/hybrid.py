@@ -10,12 +10,15 @@ host threads the tail, and both run at once; the histogram stays global
 (device part + host part, summed before the one table build).
 
 host_fraction is the host threads' share of the units: 0.0 is all
-device, 1.0 all host. Unlike the reference, a missing native library
+device, 1.0 all host; None (the default, as in the reference) reads
+MHC_HOST_FRACTION, else 0.5. Unlike the reference, a share outside
+[0, 1] raises ValueError where it clamps, and a missing native library
 raises: the caller asked for host threads.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -29,10 +32,25 @@ from .ops import bitpack
 from .utils import native
 
 
+def _fraction(host_fraction: float | None) -> float:
+    """The host threads' share: `host_fraction`, or (None) the
+    MHC_HOST_FRACTION variable, else 0.5. Unlike the reference, which
+    clamps, a share outside [0, 1] raises ValueError."""
+    name = "host_fraction"
+    if host_fraction is None:
+        name = "MHC_HOST_FRACTION"
+        text = os.environ.get(name, "0.5")
+        try:
+            host_fraction = float(text)
+        except ValueError:
+            raise ValueError(f"{name} {text!r} is not a number") from None
+    if not 0.0 <= host_fraction <= 1.0:
+        raise ValueError(f"{name} {host_fraction} is not in [0, 1]")
+    return host_fraction
+
+
 def _device_units(R: int, host_fraction: float) -> int:
     """The device takes units [0, S); the host threads take the rest."""
-    if not 0.0 <= host_fraction <= 1.0:
-        raise ValueError(f"host_fraction {host_fraction} is not in [0, 1]")
     return R - int(round(R * host_fraction))
 
 
@@ -47,15 +65,17 @@ def _host_encode(host_bytes: np.ndarray, du: int, lengths: np.ndarray,
 def compress(data: bytes, mode: str = "markov",
              block_size: int = api.DEFAULT_BLOCK_SIZE,
              decode_unit: int | None = None, crc: bool = True,
-             host_fraction: float = 0.5, pack_method: str | None = None,
-             device=None) -> bytes:
+             host_fraction: float | None = None,
+             pack_method: str | None = None, device=None) -> bytes:
     """The bytes of api.compress(data, mode, block_size, crc,
-    decode_unit): the split is an execution detail."""
-    native.require()
+    decode_unit): the split is an execution detail. `host_fraction`
+    None reads MHC_HOST_FRACTION, else 0.5 (`_fraction`)."""
     model = get_model(mode)
-    pack_method = engine.check_pack_method(pack_method)
-    dev = resolve_device(device)
     du = api.resolve_decode_unit(block_size, decode_unit, model.markov)
+    host_fraction = _fraction(host_fraction)
+    pack_method = engine.check_pack_method(pack_method)
+    native.require()
+    dev = resolve_device(device)
     n = len(data)
     R = -(-n // du)
     if R == 0:
@@ -116,48 +136,40 @@ def _host_decode(blob: bytes, meta, S: int, du: int,
     return out.tobytes()
 
 
-def _device_decode(blob: bytes, meta, S: int, du: int, starts: np.ndarray,
+def _device_decode(blob: bytes, meta, S: int, starts: np.ndarray,
                    dev: torch.device) -> bytes:
-    """The device prefix: its payload staged as an EncodeResult for
-    engine.decode."""
-    aligned = bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD)
+    """The device prefix, units [0, S), through engine.decode."""
     raw = torch.from_numpy(np.frombuffer(
         blob, np.uint8, count=int(starts[S]),
         offset=meta.payload_off).copy()).to(dev)
-    enc = engine.EncodeResult(
-        mode=get_model(meta.mode).name, block_size=meta.block_size,
-        decode_unit=du, orig_len=min(S * du, meta.orig_len), n_units=S,
-        lengths=meta.lengths, byte_lens=meta.byte_lengths[:S], bit_lens=None,
-        payload=bitpack.be_bytes_to_words(raw) if aligned else raw,
-        raw_units=bool(meta.flags & container.FLAG_RAW_UNITS),
-        aligned=aligned)
+    enc = api.parsed_chunk(meta, 0, S, raw)
     return engine.fetch_bytes(enc, engine.decode(enc))
 
 
-def decompress(blob: bytes, verify: bool = True, host_fraction: float = 0.5,
-               device=None) -> bytes:
+def decompress(blob: bytes, verify: bool = True,
+               host_fraction: float | None = None, device=None) -> bytes:
     """Original bytes of any container, the unit tail decoded by host
-    threads while the device decodes the prefix."""
+    threads while the device decodes the prefix; `host_fraction` as in
+    `compress`."""
+    host_fraction = _fraction(host_fraction)
     native.require()
     meta = container.parse_container(blob)
     dev = resolve_device(device)
     if meta.orig_len == 0:
+        # an orig_len rewritten to 0 still meets the crc of the bytes
+        if verify:
+            container.verify_crc(b"", meta)
         return b""
-    du = meta.decode_unit or meta.block_size
-    R = len(meta.byte_lengths)
-    if R != -(-meta.orig_len // du):
-        raise ValueError("mhc: corrupt container (unit count)")
+    # the checks of every route, before anything is sized by the header;
     # both halves size their rows by the encoder's longest stream
-    engine.check_unit_lengths(
-        meta.byte_lengths, du,
-        bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD), meta.orig_len)
+    du, byte_lens, starts = api.check_parsed(meta)
+    starts = starts - meta.payload_off
+    R = len(byte_lens)
     S = _device_units(R, host_fraction)
-    starts = np.zeros(R + 1, np.int64)
-    np.cumsum(meta.byte_lengths.astype(np.int64), out=starts[1:])
     with ThreadPoolExecutor(1) as ex:
         fut = (ex.submit(_host_decode, blob, meta, S, du, starts)
                if S < R else None)
-        data = (_device_decode(blob, meta, S, du, starts, dev) if S
+        data = (_device_decode(blob, meta, S, starts, dev) if S
                 else b"") + (fut.result() if fut else b"")
     if verify:
         container.verify_crc(data, meta)

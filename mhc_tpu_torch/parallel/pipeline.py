@@ -56,6 +56,13 @@ def _all_reduce_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return x.to(mesh.device)
 
 
+def barrier(mesh: Mesh) -> None:
+    """Returns on each rank once every rank has reached it: an all-reduce
+    of one zero on the collectives' device, its result fetched (under
+    NCCL the call alone would return before the other ranks join)."""
+    _all_reduce_sum(mesh, torch.zeros(1, device=mesh.device)).cpu()
+
+
 def _all_gather(mesh: Mesh, t: torch.Tensor) -> list:
     """Every rank's `t` (equal shapes), in rank order, on the
     communication device."""
@@ -145,8 +152,6 @@ def compress_sharded(data: bytes, mesh: Mesh | None = None,
     """Two-pass sharded compress: the container `api.compress` writes for
     the same input and parameters. `mesh` None: `make_mesh(device)`."""
     model = get_model(mode)
-    if block_size & (block_size - 1):
-        raise ValueError("block_size must be a power of two")
     du = api.resolve_decode_unit(block_size, decode_unit, model.markov)
     n = len(data)
     if n == 0:
@@ -172,6 +177,9 @@ def decompress_sharded(blob: bytes, mesh: Mesh | None = None,
     are checked before anything is sized."""
     meta = container.parse_container(blob)
     if meta.orig_len == 0:
+        # an orig_len rewritten to 0 still meets the crc of the bytes
+        if verify:
+            container.verify_crc(b"", meta)
         return b""
     _, byte_lens, starts = api.check_parsed(meta)
     mesh = mesh or make_mesh(device)

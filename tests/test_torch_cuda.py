@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports
-torch and mhc_tpu_torch only, so it also runs where JAX is absent:
+torch, mhc_tpu_torch and chip_smoke (which imports no JAX) only, so it
+also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import mhc_tpu_torch
 from mhc_tpu_torch import api, engine, hybrid, serve
 from mhc_tpu_torch.bench import loop_calib, mosaic_probe, probes, vpu_probe
@@ -900,6 +902,61 @@ def test_f4_served_compress_at_block_size_1(dev, mode):
     assert [len(blob), hashlib.sha256(blob).hexdigest()] == (
         corpus.load_grid_table()["containers"][corpus.grid_key(
             "skew4", mode, 1, 1, True)])
+
+
+# ---------------------------------------------------------------------------
+# F5: header fields that sized the decode with no bound
+# ---------------------------------------------------------------------------
+
+F5 = chip_smoke.f5_containers()
+
+
+@pytest.mark.parametrize("route", ["api", "hybrid"])
+@pytest.mark.parametrize("case", [k for k, v in F5.items() if v[1]])
+def test_f5_refused_on_the_card_before_any_launch(dev, route, case):
+    bad, want = F5[case]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with pytest.raises(ValueError, match=want):
+        if route == "api":
+            api.decompress(bad, device=dev)
+        else:
+            hybrid.decompress(bad, host_fraction=0.5, device=dev)
+    torch.cuda.synchronize()
+    assert not any(_build.LAUNCHES.values())
+
+
+def _peak_decode(blob: bytes, dev) -> int:
+    """Peak bytes allocated over the start by api.decompress(blob), which
+    must give F5_TEXT with one K7 launch."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.max_memory_allocated()
+    _build.LAUNCHES.clear()
+    assert api.decompress(blob, device=dev) == chip_smoke.F5_TEXT
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_units"] == 1
+    return torch.cuda.max_memory_allocated() - before
+
+
+@pytest.mark.parametrize("case", [k for k, v in F5.items() if not v[1]])
+def test_f5_legacy_block_size_decodes_in_short_rows(dev, case):
+    """K7 runs at n_out 528 (the 520-byte block rounded up to 16), where
+    the block size would exceed its INT32_MAX guard; the decode allocates
+    no more than the clean container's (its tables, ~1.1 MB)."""
+    clean = _peak_decode(chip_smoke.f5_source(legacy=True), dev)
+    assert _peak_decode(F5[case][0], dev) <= clean
+
+
+@pytest.mark.parametrize("block", [0, 1 << 32])
+def test_f5_writers_refuse_before_any_launch(dev, block):
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    for writer in (api.compress, hybrid.compress):
+        with pytest.raises(ValueError, match="block_size"):
+            writer(chip_smoke.F5_TEXT, block_size=block, device=dev)
+    assert not any(_build.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------
