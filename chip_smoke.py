@@ -188,6 +188,16 @@ calls, after building and checking every kernel those paths run:
      mhc_tpu_torch.bench.loop_calib`, `.mosaic_probe` and `.vpu_probe` in
      subprocesses (their JSON lines; every body launched; each chk the
      kernel's); the loop fit and the fetch-vs-pick times on one line
+  multigb: BASELINE config 5 at its real size, 2**31 + 2**28 + 12,345
+     bytes: the 100 MB corpus tiled to it (utils.corpus.tiled_corpus)
+     through `python -m mhc_tpu_torch.bench.multigb` at 1024 and 256 MB
+     segments (subprocesses: round trips exact, the chains the JAX
+     reference's digests, the 256 MB run's peak RSS over its process's
+     base under the file's size); then the engine past 2**31 bytes,
+     counted and timed: the tiled corpus (Markov, == api.compress), zeros
+     in both modes (F7: engine.histogram == the native host counts, N in
+     one cell; the container == hybrid at host_fraction 1.0 and 0.0) and
+     seeded noise (order-0, every unit literal, == api.compress)
 Every phase prints one JSON line; any failure raises (non-zero exit, no
 final line). Before the last line come the `nvidia-smi` line and the
 `kernels` line; the last line is the device summary.
@@ -233,6 +243,22 @@ REF_1MB_SHA256 = ("83ed79a55b4b386cb5bf938e37c55a02"
 REF_ORDER0_1MB_LEN = 945_766
 REF_ORDER0_1MB_SHA256 = ("f7791a830dcf2a69cf9f020dc94f4a16"
                          "e89f9215f15e2b41f203f854f42ea37d")
+# BASELINE config 5 at its real size (phase multigb): 2**31 + 2**28 +
+# 12,345 bytes, past every 2**31 of the kernels' row counts, byte totals
+# and counts, with a tail off every block and unit boundary; the corpus is
+# utils.corpus.tiled_corpus(MULTIGB_BYTES) (the 100 MB corpus repeated)
+MULTIGB_BYTES = (1 << 31) + (1 << 28) + 12_345
+# mhc_tpu.api.compress_file of that file with segment_size=1 << 30 (3
+# chained containers) and 256 << 20 (10), on the CPU (JAX_PLATFORMS=cpu,
+# MHC_PACK_METHOD=scatter, MHC_ENC_FETCH=padded, its cheapest CPU route,
+# which writes the same bytes):
+REF_MULTIGB_SEG1G_LEN = 1_889_930_058
+REF_MULTIGB_SEG1G_SHA256 = ("a100b86ddcfd7d3378ea353a6031570d"
+                            "0b5ce663cd8547755a16411d6a488fd9")
+REF_MULTIGB_SEG256M_LEN = 1_887_484_029
+REF_MULTIGB_SEG256M_SHA256 = ("a02db612036cdef319caa448f5b8ba86"
+                              "a11303e2eb4bfd343bdc90ebb054aed2")
+MULTIGB_NOISE_SEED = 17
 # the same for bench.make_corpus(4 << 20) (checked by the CPU tests)
 REF_4MB_SHA256 = ("54f0867e82f83dd27606e1a1df827687"
                   "846701316e48a2dc56f0a09f274bcc86")
@@ -2766,6 +2792,218 @@ def phase_probe_entry_points(full: dict) -> dict:
     return results
 
 
+def event_ms(torch, fn):
+    """(fn()'s result, ms of that one call between CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def multigb_files(path: str, seg_mb: int, ref_len: int,
+                  ref_sha: str) -> dict:
+    """`python -m mhc_tpu_torch.bench.multigb --input path` at `seg_mb`
+    MB segments in a subprocess (its peak RSS its own), its temporary
+    files under the build directory: the round trip byte-equal, and the
+    chained containers the JAX reference's. Returns its JSON line."""
+    from mhc_tpu_torch.ops.kernels import _build
+    r = subprocess.run(
+        [sys.executable, "-m", "mhc_tpu_torch.bench.multigb", "2.25",
+         str(seg_mb), "--input", path], cwd=REPO, capture_output=True,
+        text=True, timeout=600, env={**os.environ, "TMPDIR": _build.BUILD_DIR})
+    lines = r.stdout.strip().splitlines()
+    res = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
+        else None
+    if r.returncode != 0 or res is None or not res["roundtrip_ok"]:
+        raise AssertionError(f"multigb {seg_mb} MB exited {r.returncode}: "
+                             f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+    emit("multigb_files", **res)
+    if (res["compressed_bytes"], res["sha256"]) != (ref_len, ref_sha):
+        raise AssertionError(
+            f"multigb {seg_mb} MB: chain ({res['compressed_bytes']} B, "
+            f"{res['sha256']}) differs from the JAX reference's ({ref_len} "
+            f"B, {ref_sha})")
+    os.remove(os.path.join(_build.BUILD_DIR, "mhc_multigb.mhc"))
+    return res
+
+
+def multigb_engine(torch, x: bytes, mode: str, dev, name: str,
+                   want: dict, route, check=None) -> dict:
+    """engine.stage -> encode -> decode -> fetch_bytes ->
+    assemble_container of `x`, the encode and decode after one warm-up
+    pass counted and held to `want` and timed by CUDA events, the peak
+    device bytes those two's (the staged units in); the round trip
+    exact and the container
+    equal to route(), an independent route's; check(staged units), where
+    given, adds its fields. Returns the case's fields."""
+    from mhc_tpu_torch import engine
+    torch.cuda.empty_cache()
+    st = engine.stage(x, mode=mode, device=dev)
+    # a warm-up pass, so that the timed one meets the card's clocks up
+    # and its allocator holding the blocks (without it the Markov encode
+    # of the tiled corpus took 153 ms, the zeros' 26 ms, on an NVIDIA
+    # H100 80GB HBM3 at 700 W)
+    engine.decode(engine.encode(st))
+    torch.cuda.reset_peak_memory_stats()
+
+    def drive():
+        enc, enc_ms = event_ms(torch, lambda: engine.encode(st))
+        out, dec_ms = event_ms(torch, lambda: engine.decode(enc))
+        return enc, out, enc_ms, dec_ms
+
+    (enc, out, enc_ms, dec_ms), launches = run_counted(torch, drive)
+    peak = torch.cuda.max_memory_allocated()
+    require_launches(f"multigb {name}", launches, want)
+    more = check(st) if check else {}
+    n_units, du = st.n_units, st.decode_unit
+    del st
+    if engine.fetch_bytes(enc, out) != x:
+        raise AssertionError(f"multigb {name}: round trip is not exact")
+    del out
+    blob = engine.assemble_container(enc, zlib.crc32(x) & 0xFFFFFFFF)
+    del enc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    same = route() == blob
+    route_s = time.perf_counter() - t0
+    if not same:
+        raise AssertionError(f"multigb {name}: the engine's container "
+                             "differs from the independent route's")
+    return {"mode": mode, "n_bytes": len(x), "n_units": n_units,
+            "decode_unit": du,
+            "launches": {k: v for k, v in launches.items() if v},
+            "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "encode_GBps": len(x) / enc_ms / 1e6,
+            "decode_GBps": len(x) / dec_ms / 1e6,
+            "peak_device_bytes": peak, "container_bytes": len(blob),
+            "sha256": hashlib.sha256(blob).hexdigest(),
+            "route_s": route_s, **more}
+
+
+def phase_multigb(torch, data: bytes, dev) -> None:
+    """BASELINE config 5 at its real size, MULTIGB_BYTES (2.25 GiB):
+    (a) the 100 MB corpus tiled to it, written once under the build
+    directory; (b) that file through `python -m
+    mhc_tpu_torch.bench.multigb` at the file API's 1 GiB segments and at
+    256 MB (subprocesses, each peak RSS its own): round trips exact, the
+    chains the JAX reference's digests, the 256 MB run's peak RSS over
+    its process's base (the card's context and libraries) under the
+    file's size; (c) the device-resident engine past 2**31 bytes,
+    each case counted, timed and round-tripped: (i) the tiled corpus,
+    Markov, held to api.compress (the chunked route); (ii) zeros, Markov
+    and order-0, whose one cell (0, 0) / byte 0 counts MULTIGB_BYTES
+    (past int32: F7): engine.histogram equal to the native host counts,
+    and the container to the native host route's (hybrid at
+    host_fraction 1.0) and to hybrid's device route (0.0); (iii) seeded
+    noise, order-0, every unit literal and the payload past 2**31
+    bytes, held to api.compress."""
+    from mhc_tpu_torch.ops.kernels import _build
+    from mhc_tpu_torch.utils.corpus import tiled_corpus
+    started = time.perf_counter()
+    n = MULTIGB_BYTES
+    tiled = tiled_corpus(n, CORPUS_BYTES, tile=data)
+    path = os.path.join(_build.BUILD_DIR, "multigb_tiled.bin")
+    with open(path, "wb") as f:
+        f.write(tiled)
+    del tiled
+    write_s = time.perf_counter() - started
+    files = {1024: multigb_files(path, 1024, REF_MULTIGB_SEG1G_LEN,
+                                 REF_MULTIGB_SEG1G_SHA256),
+             256: multigb_files(path, 256, REF_MULTIGB_SEG256M_LEN,
+                                REF_MULTIGB_SEG256M_SHA256)}
+    os.remove(path)
+    # what the run adds to the resident set of a process that holds the
+    # card follows the segment; the base alone (the CUDA context and
+    # libraries: about 5 GB beside an NVIDIA H100 80GB HBM3 at 700 W,
+    # PERF.md) is more than the file
+    grown = files[256]["peak_rss_over_base_GB"]
+    if grown is None or grown * 1e9 >= n:
+        raise AssertionError(
+            f"multigb 256 MB: the peak RSS grew {grown} GB over the "
+            f"process's base, not under the file's {n} bytes")
+    files_s = time.perf_counter() - started - write_s
+    from mhc_tpu_torch.bench.multigb import PeakRss
+    with PeakRss() as rss:
+        cases = multigb_engine_cases(torch, data, dev)
+    emit("multigb", n_bytes=n, write_s=write_s, files_s=files_s,
+         engine_cases_peak_rss_GB=rss.peak / 1e9,
+         peak_rss_GB={k: v["peak_rss_GB"] for k, v in files.items()},
+         peak_rss_over_base_GB={k: v["peak_rss_over_base_GB"]
+                                for k, v in files.items()},
+         engine=cases, seconds=time.perf_counter() - started)
+
+
+def multigb_engine_cases(torch, data: bytes, dev) -> dict:
+    """The multigb phase's engine cases (i)-(iii) on MULTIGB_BYTES, (i)
+    on the 100 MB corpus `data` tiled. Returns each case's fields."""
+    from mhc_tpu_torch import api, engine, hybrid
+    from mhc_tpu_torch.utils import native
+    from mhc_tpu_torch.utils.corpus import tiled_corpus
+    import numpy as np
+    n = MULTIGB_BYTES
+    tiled = tiled_corpus(n, CORPUS_BYTES, tile=data)
+    rt = {"canonical_tables": "once", "expand_units": "once",
+          "code_tables": "once", "code_lengths": "none",
+          "compact_units": "once"}
+    cases = {}
+    cases["corpus_markov"] = multigb_engine(
+        torch, tiled, "markov", dev, "corpus_markov",
+        {**rt, "markov_hist": "once", "pack_units": "once",
+         "decode_lut": "once", "decode_units": "once",
+         "literal_rows": "once"},
+        lambda: api.compress(tiled, device=dev))
+    del tiled
+    zeros = bytes(n)
+
+    def counts_check(st) -> dict:
+        """engine.histogram (K1 / K2) == the native host counts, whose
+        first cell holds every byte."""
+        flat = np.frombuffer(zeros, np.uint8)
+        host = (native.hist_markov(flat, st.decode_unit)
+                if st.mode == "markov" else native.hist_order0(flat))
+        counts = engine.histogram(st)
+        first = (int(counts.reshape(-1)[0]), int(host.reshape(-1)[0]))
+        if not np.array_equal(counts, host) or first != (n, n):
+            raise AssertionError(
+                f"multigb zeros {st.mode}: the card's counts differ from "
+                f"the native host counts (first cell {first}, want {n})")
+        return {"first_cell_count": first[0],
+                "native_first_cell_count": first[1]}
+
+    for mode, hist, dec in (("markov", "markov_hist", "decode_units"),
+                            ("huffman", "order0_hist",
+                             "decode_units_order0")):
+        name = f"zeros_{mode}"
+        lut = dec.replace("decode_units", "decode_lut")
+        case = multigb_engine(
+            torch, zeros, mode, dev, name,
+            {**rt, hist: "once", "pack_units": "once", lut: "once",
+             dec: "once", "literal_rows": "none"},
+            lambda: hybrid.compress(zeros, mode=mode, host_fraction=1.0,
+                                    device=dev), counts_check)
+        # hybrid's device route: its prefix's counts from the card (K1/K2)
+        blob, s = wall_s(torch, lambda: hybrid.compress(
+            zeros, mode=mode, host_fraction=0.0, device=dev))
+        if hashlib.sha256(blob).hexdigest() != case["sha256"]:
+            raise AssertionError(f"multigb {name}: hybrid's device route "
+                                 "differs from the native host route")
+        cases[name] = {**case, "hybrid_device_s": s}
+    del zeros
+    noise = np.random.default_rng(MULTIGB_NOISE_SEED).bytes(n)
+    cases["noise_order0"] = multigb_engine(
+        torch, noise, "huffman", dev, "noise_order0",
+        {**rt, "order0_hist": "once", "pack_units": "once",
+         "decode_lut_order0": "once", "decode_units_order0": "once",
+         "literal_rows": "once"},
+        lambda: api.compress(noise, mode="huffman", device=dev))
+    del noise
+    torch.cuda.empty_cache()
+    return cases
+
+
 def run_phases(torch, plains, plains_path: str, started: float) -> dict:
     """Every phase after the build, on cuda:0; the `kernels` line's rows
     (`plains`: the `--reference-plains` worker writing `plains_path`;
@@ -2829,6 +3067,7 @@ def run_phases(torch, plains, plains_path: str, started: float) -> dict:
              b: entry["vpu_probe"][b]["us_per_iter"]
              for b in ("fetch316_i8_matmul", "fetch316_bf16_matmul",
                        "pick256_i32", "pick256_i8mul_i32sum")})
+    phase_multigb(torch, data, dev)
     # each kernel's launches on the path that runs it (K3: the main path;
     # the order-0 path's launches are in its own line; K11 alone: one
     # `EntropyModel.lengths_for` call, the encode's build being the fused

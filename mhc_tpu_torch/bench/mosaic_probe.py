@@ -53,7 +53,7 @@ def run(device: torch.device, corpus_bytes: int = CORPUS_BYTES) -> dict:
         lambda: probes.markov_hist_matmul(units, n_valid), device)
     got, res["hist_pallas_s"] = probes.best_seconds(
         lambda: histogram.histogram_markov(units, n_valid), device)
-    res["hist_pallas_ok"] = bool(torch.equal(got, ref))
+    res["hist_pallas_ok"] = bool(torch.equal(got, ref.to(got.dtype)))
     res["hist_rows"] = list(units.shape)
     res["launches"] = probes.launches_since(before, "mosaic_probe/",
                                             "markov_hist")

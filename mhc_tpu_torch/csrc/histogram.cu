@@ -11,8 +11,10 @@
 // Contracts. K1: counts[prev][cur] over every position j < n_valid[b] of
 // every unit b, where prev is the unit's previous byte and 0 at j = 0
 // (the Markov context resets per unit). K2: counts[c] = #{(b, j) :
-// j < n_valid[b], units[b][j] = c}. Exact int32 counts, added to an
-// output the caller zeroed (K1's 8-byte aligned).
+// j < n_valid[b], units[b][j] = c}. Exact int64 counts, added to an
+// output the caller zeroed: a batch of 2^31 bytes or more can hold one
+// cell 2^31 times or more (2.25 GiB of zeros puts 2,415,931,449 in cell
+// (0, 0) and in byte 0), which an int32 table would wrap.
 //
 // Bound. Both read the input once (105 MB on the main paths: 0.031 ms at
 // 3.35 TB/s) and do one shared-memory atomic per byte. K1's atomics
@@ -51,21 +53,27 @@
 //   wrapped the high field too (old >> 16 == 0xFFFF, the carry leaves the
 //   word) 65,536 more to the high bin;
 // - a high field wrapped: the thread adds 65,536 to the high bin.
-// At the end the block adds each field to its global bin.
-// Every add to the global table is one 64-bit atomic on the pair of bins
-// that a shared word holds (the even bin in the low half): the even bin
-// only ever receives non-negative adds, whose sum, its count, is below
-// 2^31, so no carry crosses into the odd bin, whose half adds modulo 2^32.
-// Why this is exact: a field's final value is the sum of what was added
-// to it (its increments, and for a high field the carries into it) less
-// 65,536 for each time it wrapped. Shared atomics on one word are
+// At the end the block stores its 32,768 words, as they are, to its row
+// of a global scratch (128 KB, coalesced 16-byte stores), and a second
+// kernel, `markov_merge_kernel`, adds each bin's fields over the rows
+// into the global table, one thread a word: the table is int64 (a
+// 2.25 GiB input can put 2^31 or more into one bin), and 64-bit atomics
+// from every block, one a non-zero field (twice the 32-bit pair atomics
+// of an int32 table, which must not carry from one bin into the next),
+// cost K1 more than a tenth of its time at 100 MB on an NVIDIA H100 80GB
+// HBM3 (PERF.md), where the scratch's 17 MB are stored and read once. The global bins add
+// modulo 2^64 (a credited -1 is ~0), so a bin is exact at any count below
+// 2^63. Why this is exact: a field's final value is the sum of what was
+// added to it (its increments, and for a high field the carries into it)
+// less 65,536 for each time it wrapped. Shared atomics on one word are
 // applied one at a time, each to the word that the one before it left,
 // and each returns that word: so every wrap and every carry is caused by
 // exactly one atomic, that atomic alone sees it in its return value, and
 // it credits it once. Summed over the blocks, global bin = increments +
 // carries - carries (the -1 of each carry) + 65,536 per wrap - 65,536 per
-// wrap = the count. Integer adds commute, so the order of the global
-// atomics does not matter.
+// wrap = the count. Integer adds commute, so the order of the credits'
+// atomics does not matter; the merge runs after every credit (stream
+// order) and owns its two bins.
 //
 // K2 walks its share unit segment by unit segment (one n_valid load per
 // segment), 256-thread blocks, eight per SM, one 256-bin copy per warp
@@ -77,7 +85,9 @@
 // cost little, so more copies per warp (more distinct addresses) and the
 // rotation that helps K1 lose here; so do two or four loads in flight
 // (PERF.md). The walk alone, its atomics removed, takes about the bytes
-// bound; the atomics take the rest.
+// bound; the atomics take the rest. Its shared and per-block counts are
+// 32-bit: exact while a block's share, 1/1,056 of the batch on 132 SMs,
+// stays under 2^31 bytes, so for any batch a card holds.
 
 #include "common.cuh"
 
@@ -87,6 +97,7 @@ constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int kThreads1 = 1024;           // K1: one block per SM
 constexpr int kWords1 = 256 * 256 / 2;    // K1: two 16-bit bins per word
 constexpr int kSmem1 = kWords1 * sizeof(uint32_t);
+constexpr int kMergeThreads = 256;        // K1's merge: one word a thread
 constexpr int kThreads2 = 256;            // K2: eight blocks per SM
 constexpr int kBlocksPerSm2 = 2048 / kThreads2;
 constexpr int kCopies2 = kThreads2 / 32;  // K2: one 256-bin copy per warp
@@ -189,20 +200,23 @@ __device__ __forceinline__ uint32_t byte_of(const uint4& q, int k) {
 // K1
 // ---------------------------------------------------------------------------
 
-// The global table as bin pairs: even bin in the low half.
-using Pairs = unsigned long long;
+// The global table's bins, added modulo 2^64.
+using Count = unsigned long long;
 
 // Credits the wrap of bin's 16-bit field by an increment of 1, given the
-// word `old` its atomicAdd returned (see the note at the top).
-__device__ __forceinline__ void credit_wrap(Pairs* __restrict__ out,
+// word `old` its atomicAdd returned (see the note at the top): 65,536 to
+// the bin; for a low field, the carry's -1 to the high bin, or 65,535
+// where that carry wrapped the high field too.
+__device__ __forceinline__ void credit_wrap(Count* __restrict__ out,
                                             uint32_t bin, uint32_t old) {
-  const uint32_t odd = bin & 1 ? 65536u
-                       : (old >> 16) == 0xFFFFu ? 65535u : 0xFFFFFFFFu;
-  atomicAdd(out + (bin >> 1), (Pairs)odd << 32 | (bin & 1 ? 0u : 65536u));
+  atomicAdd(out + bin, (Count)65536);
+  if (!(bin & 1))
+    atomicAdd(out + (bin | 1),
+              (old >> 16) == 0xFFFFu ? (Count)65535 : ~(Count)0);
 }
 
 __device__ __forceinline__ void count_pair(uint32_t* words,
-                                           Pairs* __restrict__ out,
+                                           Count* __restrict__ out,
                                            uint32_t bin) {
   const uint32_t sh = (bin & 1) << 4;
   const uint32_t old = atomicAdd(words + (bin >> 1), 1u << sh);
@@ -211,7 +225,7 @@ __device__ __forceinline__ void count_pair(uint32_t* words,
 
 // The 16 pairs of a full vector, each word's in lane-rotated order.
 __device__ __forceinline__ void count_pairs16(uint32_t* words,
-                                              Pairs* __restrict__ out,
+                                              Count* __restrict__ out,
                                               const uint4& q, uint32_t prev) {
   // bytes, and the bytes one position later (each byte's prev)
   const uint32_t cur[4] = {q.x, q.y, q.z, q.w};
@@ -233,14 +247,15 @@ __device__ __forceinline__ void count_pairs16(uint32_t* words,
   }
 }
 
-// vec: n % 16 == 0 and units 16-byte aligned (checked by the host).
+// vec: n % 16 == 0 and units 16-byte aligned (checked by the host);
+// partial: (gridDim.x, kWords1) words, 16-byte aligned, each row written.
 __global__ void __launch_bounds__(kThreads1, 1)
 markov_hist_kernel(const uint8_t* __restrict__ units,
                    const int32_t* __restrict__ n_valid, int64_t R, int64_t n,
-                   int32_t* __restrict__ out_bins, bool vec) {
+                   Count* __restrict__ out, uint32_t* __restrict__ partial,
+                   bool vec) {
   extern __shared__ uint4 smem1[];
   uint32_t* words = reinterpret_cast<uint32_t*>(smem1);
-  Pairs* out = reinterpret_cast<Pairs*>(out_bins);
   for (int i = threadIdx.x; i < kWords1 / 4; i += blockDim.x)
     smem1[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
@@ -263,10 +278,25 @@ markov_hist_kernel(const uint8_t* __restrict__ units,
       count_pair(words, out, prev << 8 | cur);
     });
   __syncthreads();
-  for (int w = threadIdx.x; w < kWords1; w += blockDim.x) {
-    const uint32_t x = words[w];
-    if (x) atomicAdd(out + w, (Pairs)(x >> 16) << 32 | (x & 0xFFFFu));
+  uint4* row = reinterpret_cast<uint4*>(partial + blockIdx.x * (int64_t)kWords1);
+  for (int i = threadIdx.x; i < kWords1 / 4; i += blockDim.x) row[i] = smem1[i];
+}
+
+// K1's merge: word w's two fields summed over the `rows` rows of
+// `partial`, added to bins 2w and 2w + 1 (which hold the credits).
+__global__ void __launch_bounds__(kMergeThreads)
+markov_merge_kernel(const uint32_t* __restrict__ partial, int rows,
+                    Count* __restrict__ out) {
+  const int w = blockIdx.x * kMergeThreads + threadIdx.x;
+  Count lo = 0, hi = 0;
+#pragma unroll 4
+  for (int b = 0; b < rows; ++b) {
+    const uint32_t x = __ldg(partial + b * (int64_t)kWords1 + w);
+    lo += x & 0xFFFFu;
+    hi += x >> 16;
   }
+  out[2 * w] += lo;
+  out[2 * w + 1] += hi;
 }
 
 // ---------------------------------------------------------------------------
@@ -288,7 +318,7 @@ __device__ __forceinline__ void count_bytes16(int32_t* copy, const uint4& q,
 __global__ void __launch_bounds__(kThreads2, kBlocksPerSm2)
 order0_hist_kernel(const uint8_t* __restrict__ units,
                    const int32_t* __restrict__ n_valid, int64_t R, int64_t n,
-                   int32_t* __restrict__ out, bool vec) {
+                   Count* __restrict__ out, bool vec) {
   __shared__ int32_t bins[kCopies2 * kStride2];
   for (int i = threadIdx.x; i < kCopies2 * kStride2; i += blockDim.x)
     bins[i] = 0;
@@ -316,10 +346,10 @@ order0_hist_kernel(const uint8_t* __restrict__ units,
   }
   __syncthreads();
   for (int c = threadIdx.x; c < 256; c += blockDim.x) {
-    int32_t v = 0;
+    uint32_t v = 0;
 #pragma unroll
     for (int i = 0; i < kCopies2; ++i) v += bins[i * kStride2 + c];
-    if (v) atomicAdd(out + c, v);
+    if (v) atomicAdd(out + c, (Count)v);
   }
 }
 
@@ -337,28 +367,39 @@ bool vectorised(const uint8_t* units, int64_t n) {
 
 }  // namespace
 
-// out: (256, 256) int32, 8-byte aligned, zeroed by the caller.
+// out: (256, 256) int64, zeroed by the caller; partial: scratch of
+// (partial_rows, 32768) uint32, 16-byte aligned, partial_rows at least
+// one a streaming multiprocessor (the walk's grid). Two launches: the
+// walk, then the merge.
 extern "C" int mhc_markov_hist(const uint8_t* units, const int32_t* n_valid,
-                               int64_t R, int64_t n, int32_t* out,
+                               int64_t R, int64_t n, int64_t* out,
+                               uint32_t* partial, int64_t partial_rows,
                                cudaStream_t stream) {
-  if (R < 0 || n < 0 || n > INT32_MAX ||
-      reinterpret_cast<uintptr_t>(out) % 8 != 0)
+  const unsigned grid = grid_for(R, n, kThreads1, 1);
+  if (R < 0 || n < 0 || n > INT32_MAX || partial_rows < (int64_t)grid ||
+      reinterpret_cast<uintptr_t>(partial) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(markov_hist_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem1);
-  markov_hist_kernel<<<grid_for(R, n, kThreads1, 1), kThreads1, kSmem1,
-                       stream>>>(units, n_valid, R, n, out,
-                                 vectorised(units, n));
+  markov_hist_kernel<<<grid, kThreads1, kSmem1, stream>>>(
+      units, n_valid, R, n, reinterpret_cast<Count*>(out), partial,
+      vectorised(units, n));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  markov_merge_kernel<<<kWords1 / kMergeThreads, kMergeThreads, 0,
+                        stream>>>(partial, (int)grid,
+                                  reinterpret_cast<Count*>(out));
   return (int)cudaGetLastError();
 }
 
-// out: (256,) int32, zeroed by the caller.
+// out: (256,) int64, zeroed by the caller.
 extern "C" int mhc_order0_hist(const uint8_t* units, const int32_t* n_valid,
-                               int64_t R, int64_t n, int32_t* out,
+                               int64_t R, int64_t n, int64_t* out,
                                cudaStream_t stream) {
   if (R < 0 || n < 0 || n > INT32_MAX) return (int)cudaErrorInvalidValue;
   order0_hist_kernel<<<grid_for(R, n, kThreads2, kBlocksPerSm2), kThreads2,
-                       0, stream>>>(units, n_valid, R, n, out,
+                       0, stream>>>(units, n_valid, R, n,
+                                    reinterpret_cast<Count*>(out),
                                     vectorised(units, n));
   return (int)cudaGetLastError();
 }

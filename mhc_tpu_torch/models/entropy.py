@@ -32,7 +32,7 @@ class EntropyModel:
 
     def histogram(self, units: torch.Tensor,
                   n_valid: torch.Tensor) -> torch.Tensor:
-        """int32 counts on the units' device: (256, 256) [prev, cur] for
+        """int64 counts on the units' device: (256, 256) [prev, cur] for
         Markov, (256,) for order-0."""
         if self.markov:
             return histogram.histogram_markov(units, n_valid)

@@ -4,7 +4,8 @@ Counterpart of `mhc_tpu/ops/histogram.py`: `histogram_markov` is the
 (256, 256) [prev, cur] counts, with the Markov context reset to 0 at
 every unit start; `histogram_order0` is the (256,) byte counts. Both
 exclude positions past n_valid — the same symbols the encoder later
-codes. CUDA tensors go through kernels K1 and K2, CPU tensors through
+codes. Counts are int64, exact past 2**31 in one cell (the reference's
+are int32). CUDA tensors go through kernels K1 and K2, CPU tensors through
 their plain versions (ops/kernels/histogram_cuda.py).
 """
 
@@ -17,11 +18,11 @@ from .kernels import histogram_cuda
 
 def histogram_markov(units: torch.Tensor,
                      n_valid: torch.Tensor) -> torch.Tensor:
-    """(R, n) uint8, (R,) int32 -> (256, 256) int32 counts."""
+    """(R, n) uint8, (R,) int32 -> (256, 256) int64 counts."""
     return histogram_cuda.markov_hist(units, n_valid)
 
 
 def histogram_order0(units: torch.Tensor,
                      n_valid: torch.Tensor) -> torch.Tensor:
-    """(R, n) uint8, (R,) int32 -> (256,) int32 counts."""
+    """(R, n) uint8, (R,) int32 -> (256,) int64 counts."""
     return histogram_cuda.order0_hist(units, n_valid)

@@ -1,5 +1,5 @@
-"""The 100 MB benchmark corpus, the port's own copy, and the parameter
-grid's inputs and cases.
+"""The 100 MB benchmark corpus, the port's own copy, its tiling to
+multi-GB inputs, and the parameter grid's inputs and cases.
 
 `make_corpus` gives byte for byte what the reference's `bench.make_corpus`
 gives for the same size and seed; `tests/test_torch_corpus.py` holds the
@@ -62,6 +62,23 @@ def make_corpus(n_bytes: int, seed: int = 42) -> bytes:
             parts.append(rng.integers(0, 256, 1 << 16,
                                       dtype=np.uint8).tobytes())
     return b"".join(parts)[:n_bytes]
+
+
+def tiled_corpus(n: int, tile_bytes: int = 100 << 20,
+                 tile: bytes | None = None) -> bytes:
+    """The first `n` bytes of `make_corpus(tile_bytes)` repeated: equal to
+    `(make_corpus(tile_bytes) * k)[:n]` for any k covering n, built with
+    one copy. `tile` is that corpus where the caller holds it already.
+    The multi-GB inputs (BASELINE config 5) are tiled because a fresh
+    `make_corpus` of gigabytes costs minutes on one CPU core; a segment
+    whose size is no multiple of the tile starts at another offset in
+    it."""
+    if tile is None:
+        tile = make_corpus(tile_bytes)
+    elif len(tile) != tile_bytes:
+        raise ValueError(f"tile of {len(tile)} bytes, not {tile_bytes}")
+    full, rest = divmod(n, tile_bytes)
+    return b"".join([tile] * full + [tile[:rest]])
 
 
 def grid_inputs(seed: int = GRID_SEED) -> dict:

@@ -8,6 +8,7 @@ also runs where JAX is absent:
 """
 
 import hashlib
+import zlib
 
 import numpy as np
 import pytest
@@ -1109,3 +1110,83 @@ def test_probe_entry_points_on_the_card(dev):
     res = mosaic_probe.run(dev, corpus_bytes=1 << 20)
     assert res["i8_matmul"] is True and res["hist_pallas_ok"] is True
     assert res["launches"] == {"markov_hist": 4, "mosaic_probe/i8_matmul": 4}
+
+
+# F7 and BASELINE config 5 (the multigb phase): counts past int32, and the
+# engine past 2**31 bytes. MULTIGB_BYTES of zeros hold one cell that often.
+N_F7 = chip_smoke.MULTIGB_BYTES
+
+
+@pytest.fixture
+def zeros_f7(dev):
+    return bytes(N_F7)
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_f7_histogram_of_zeros_past_int32_equals_native_counts(
+        dev, zeros_f7, mode):
+    """K1 (cell (0, 0)) and K2 (byte 0) count every one of the 2.25 GiB
+    of zeros, as the native host counts do (int64); the reference's int32
+    counts wrap there."""
+    from mhc_tpu_torch.utils import native
+    st = engine.stage(zeros_f7, mode=mode, device=dev)
+    hist = (histogram_cuda.markov_hist if mode == "markov"
+            else histogram_cuda.order0_hist)
+    counts = hist(st.units, st.n_valid)
+    assert counts.dtype == torch.int64
+    flat = np.frombuffer(zeros_f7, np.uint8)
+    host = (native.hist_markov(flat, st.decode_unit) if mode == "markov"
+            else native.hist_order0(flat))
+    assert int(counts.reshape(-1)[0]) == N_F7 > 2 ** 31 - 1
+    np.testing.assert_array_equal(counts.cpu().numpy(), host)
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_f7_engine_zeros_container_equals_native_route(dev, zeros_f7, mode):
+    """The engine's container of the 2.25 GiB of zeros (its counts past
+    int32 in one cell) is the native host route's, and decodes to the
+    zeros."""
+    st = engine.stage(zeros_f7, mode=mode, device=dev)
+    enc = engine.encode(st)
+    assert engine.fetch_bytes(enc, engine.decode(enc)) == zeros_f7
+    del st
+    blob = engine.assemble_container(enc, zlib.crc32(zeros_f7))
+    del enc
+    torch.cuda.empty_cache()
+    assert blob == hybrid.compress(zeros_f7, mode=mode, host_fraction=1.0,
+                                   device=dev)
+
+
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_f7_histogram_kernels_at_100mb_equal_plain_versions(dev, mode):
+    """K1 and K2 with their int64 tables still equal their plain versions
+    on the 100 MB corpus (chip_smoke.py's main-path inputs)."""
+    st = engine.stage(corpus.make_corpus(chip_smoke.CORPUS_BYTES),
+                      mode=mode, device=dev)
+    hist, plain = ((histogram_cuda.markov_hist,
+                    histogram_cuda.markov_hist_plain) if mode == "markov"
+                   else (histogram_cuda.order0_hist,
+                         histogram_cuda.order0_hist_plain))
+    got = hist(st.units, st.n_valid)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, plain(st.units, st.n_valid))
+
+
+def test_multigb_entry_point_on_the_card(dev, tmp_path):
+    """multigb.run at 1 MB segments over 3 segments and a tail: the chain
+    of api.compress containers, byte-equal round trip, the device's
+    fields and the kernels launched."""
+    from mhc_tpu_torch.bench import multigb
+    data = corpus.tiled_corpus(3 * (1 << 20) + 12_345, 1 << 20)
+    src = tmp_path / "in.bin"
+    src.write_bytes(data)
+    dst = tmp_path / "out.mhc"
+    res = multigb.run(str(src), 1 << 20, dev, dst=str(dst))
+    chain = b"".join(api.compress(data[i: i + (1 << 20)], device=dev)
+                     for i in range(0, len(data), 1 << 20))
+    assert dst.read_bytes() == chain
+    assert res["roundtrip_ok"] is True and res["n_segments"] == 4
+    assert res["platform"] == "gpu" and res["device"]
+    assert res["peak_device_bytes"]["compress"] > 0
+    assert res["launches"]["compress"]["code_tables"] == 4
+    assert res["launches"]["decompress"]["decode_units"] == 4

@@ -37,7 +37,7 @@ def test_histogram_matches_jax_matmul(ragged):
         jnp.asarray(units), jnp.asarray(nv), method="matmul"))
     got = port_histogram.histogram_markov(torch.from_numpy(units),
                                           torch.from_numpy(nv))
-    assert got.dtype == torch.int32 and got.shape == (256, 256)
+    assert got.dtype == torch.int64 and got.shape == (256, 256)
     np.testing.assert_array_equal(got.numpy(), ref)
 
 

@@ -36,5 +36,5 @@ def test_the_port_imports_no_jax():
                  "ops.kernels.decode_cuda", "ops.kernels.probes_cuda",
                  "ops.kernels.tables_cuda", "ops.kernels.stages_cuda",
                  "bench.probes", "bench.loop_calib", "bench.mosaic_probe",
-                 "bench.vpu_probe"):
+                 "bench.vpu_probe", "bench.multigb"):
         assert f"mhc_tpu_torch.{name}" in got["imported"], name

@@ -52,7 +52,7 @@ def test_order0_histogram_matches_jax_scatter(B, n, seed):
         jnp.asarray(units), jnp.asarray(nv), method="scatter"))
     got = port_histogram.histogram_order0(torch.from_numpy(units),
                                           torch.from_numpy(nv))
-    assert got.dtype == torch.int32 and got.shape == (256,)
+    assert got.dtype == torch.int64 and got.shape == (256,)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(
         ORDER0.histogram(torch.from_numpy(units), torch.from_numpy(nv)),
