@@ -1194,8 +1194,10 @@ def round_trip(torch, data: bytes, mode: str, dev, path: str,
 
 def device_idle_share(torch, fn):
     """1 - (device busy time) / (host wall time) over one call of fn(),
-    the busy time the union of the CUDA intervals torch.profiler traced;
-    None when it traced no device time."""
+    the busy time the union of the CUDA intervals torch.profiler traced,
+    kernels and copies alone: the profiler's device-side copies of the
+    host's `record_function` ranges (the program's `mhc.*` spans) are no
+    device work. None when it traced no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1204,9 +1206,15 @@ def device_idle_share(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    work = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "annotation" not in str(getattr(e, "activity_type", ""))]
+    named = sorted({e.name for e in work if e.name.startswith("mhc.")})
+    if named:
+        raise AssertionError(f"device_idle_share: spans counted as device "
+                             f"work: {named}")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in work)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         busy += max(0.0, b - max(a, end))

@@ -15,8 +15,9 @@ functions with segment chaining, the `hybrid` host/device split, the
 data-parallel sharded pipeline on `torch.distributed` (`parallel/`),
 the CLI (`python -m mhc_tpu_torch.cli encode|decode|stat`), the HTTP
 codec service (`python -m mhc_tpu_torch.serve`) and the observability
-of `utils.metrics` (`Trace`, the `MHC_TRACE` phase trace of `compress` /
-`decompress`, `torch_profile`, `scaling_report`).
+of `utils.metrics` (the spans of every layer, `tracing` and its `Trace`,
+the `MHC_TRACE` phase trace of `compress` / `decompress`,
+`torch_profile`, `scaling_report`).
 `device=None` means the first CUDA card and raises without one; the CPU
 runs only when named.
 """

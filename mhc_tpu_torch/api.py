@@ -27,19 +27,29 @@ them over the ranks of a `torch.distributed` world
 (`parallel/pipeline.py`), whose ranks each run `encode_range` and
 `decode_range` on their share.
 
-With `MHC_TRACE` set, `compress` and `decompress` each print one
-`[mhc-trace compress] {json}` / `[mhc-trace decompress] {json}` line to
-stderr (`utils.metrics.Trace`), as the reference does: per phase its
-seconds, bytes, GB/s and calls, every phase ending in a whole-device
-synchronisation (so a traced call overlaps nothing and runs slower than
-an untraced one). Compress: `blockify` (filling the staging buffers),
-`h2d`, `tables` (the histograms and the table build), `crc32`, `pack`
-(`engine.encode` of a chunk), `d2h` (the payload's copy, then its cut
-to the container layout) and `container`; decompress: `h2d`, `decode`
+Each step of a call is a span (`utils.metrics.span`): `mhc.api.compress`
+/ `mhc.api.decompress` around the call, and inside it the phases
+compress: `blockify` (filling the staging buffers), `h2d`, `tables`
+(the histograms and the table build), `crc32`, `pack` (`engine.encode`
+of a chunk), `d2h` (the copy's start, then the wait for it and the
+host's `join`, its cut to the container layout) and `container`;
+decompress: `parse` (the container's parse and checks), `h2d`, `decode`
 (`engine.decode` of a chunk: its tables, expansion, K7 and literal
 rows, so the reference's decode-side `tables` and `expand` fall in
-it), `d2h` and `crc32`. The reference's `compact` and `marshal` have no
-stage of their own here. Unset, no phase synchronises anything.
+it), `d2h` (the waits and the `join`) and `crc32`, each
+`mhc.api.<phase>`. No span synchronises the device: a phase's seconds
+are the host's, and the device work it launched runs on. While a
+`torch.profiler` runs, the spans are `record_function` ranges on its
+clock, nested in the engine's (`mhc.engine.*`), the kernel launches'
+(`mhc.launch.*`) and the host's waits for the device (`mhc.wait.*`), so
+the device trace shows which step the card waited on;
+`utils.metrics.tracing()` hands a caller the list of spans. With
+`MHC_TRACE` set, `compress` and `decompress` each print one
+`[mhc-trace compress] {json}` / `[mhc-trace decompress] {json}` line to
+stderr, as the reference does: per phase its host seconds, bytes, GB/s
+and calls, the reference's phases alone (no `parse`), recording into a
+caller's `tracing()` where one is active. The reference's
+`compact` and `marshal` have no stage of their own here.
 
 Not ported: the reference's d2h split into sub-buffers (`_fetch_subs`,
 `_split_flat`: a workaround for its relay), its `MHC_ENC_FETCH` variants
@@ -52,7 +62,7 @@ from __future__ import annotations
 import os
 import sys
 import zlib
-from contextlib import nullcontext
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -61,6 +71,7 @@ from . import container
 from .config import resolve_device
 from .models.entropy import get_model
 from .ops.huffman import MAX_CODE_LEN
+from .utils.metrics import span, tracing
 
 DEFAULT_BLOCK_SIZE = 64 * 1024
 # Sequential decode length per stream: 8 KB units keep the 100 MB Markov
@@ -140,17 +151,20 @@ def _is_int(x) -> bool:
     return isinstance(x, (int, np.integer)) and not isinstance(x, bool)
 
 
-def _tracer():
-    if os.environ.get("MHC_TRACE"):
-        from .utils.metrics import Trace
-        return Trace()
-    return None
-
-
-def _phases(trace):
-    """`trace.phase`, or (trace None) a context that does nothing."""
-    return trace.phase if trace is not None else (
-        lambda *a, **k: nullcontext())
+@contextmanager
+def _call(what: str, nbytes: int):
+    """The span `mhc.api.<what>` of one call. With `MHC_TRACE` set, its
+    spans are recorded (into the caller's `tracing()` where one is
+    active) and its phases printed as one `[mhc-trace <what>] {json}`
+    line to stderr."""
+    if not os.environ.get("MHC_TRACE"):
+        with span(f"mhc.api.{what}", nbytes):
+            yield
+        return
+    with tracing(join=True) as tr, span(f"mhc.api.{what}", nbytes) as i:
+        yield
+    print(f"[mhc-trace {what}] {tr.dumps(omit=('parse',), root=i)}",
+          file=sys.stderr)
 
 
 def _chunks(lo: int, hi: int, du: int):
@@ -216,9 +230,10 @@ class _Copier:
     @staticmethod
     def host(handle) -> np.ndarray:
         pinned, done = handle
-        if done is not None:
-            done.synchronize()
-        return pinned.numpy()
+        with span("mhc.wait.d2h"):
+            if done is not None:
+                done.synchronize()
+            return pinned.numpy()
 
 
 def _empty_container(model, block_size: int, du: int, checksum) -> bytes:
@@ -237,28 +252,25 @@ def compress(data: bytes, mode: str = "markov",
     `pack_method` is "fused" (None, K3), "dense" (K5 then K4) or
     "pallas" (K5 then K6); all write the same bytes."""
     from . import engine
-    model = get_model(mode)
-    du = resolve_decode_unit(block_size, decode_unit, model.markov)
-    pack_method = engine.check_pack_method(pack_method)
-    if len(data) == 0:
-        return _empty_container(model, block_size, du,
-                                zlib.crc32(b"") if crc else None)
-    trace = _tracer()
-    lengths, bit_lens, payload, checksum = encode_range(
-        data, 0, -(-len(data) // du), model, block_size, du,
-        resolve_device(device), pack_method, crc, trace=trace)
-    with _phases(trace)("container", len(data)):
-        blob = container.build_container(
-            model.mode, len(data), block_size, lengths, bit_lens, payload,
-            checksum, decode_unit=du)
-    if trace is not None:
-        print(f"[mhc-trace compress] {trace.dumps()}", file=sys.stderr)
-    return blob
+    with _call("compress", len(data)):
+        model = get_model(mode)
+        du = resolve_decode_unit(block_size, decode_unit, model.markov)
+        pack_method = engine.check_pack_method(pack_method)
+        if len(data) == 0:
+            return _empty_container(model, block_size, du,
+                                    zlib.crc32(b"") if crc else None)
+        lengths, bit_lens, payload, checksum = encode_range(
+            data, 0, -(-len(data) // du), model, block_size, du,
+            resolve_device(device), pack_method, crc)
+        with span("mhc.api.container", len(data)):
+            return container.build_container(
+                model.mode, len(data), block_size, lengths, bit_lens,
+                payload, checksum, decode_unit=du)
 
 
 def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
                  du: int, dev, pack_method: str = "fused", crc: bool = True,
-                 reduce_counts=None, trace=None):
+                 reduce_counts=None):
     """Units [lo, hi) of `data` (units past its end are empty and code to
     no bits) through the engine on `dev`, in chunks of CHUNK_BYTES. Pass
     1 copies every chunk to the device and histograms it, the counts
@@ -266,39 +278,37 @@ def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
     they are; the sharded pipeline sums them over its ranks), then one
     table build (`EntropyModel.tables_for`); pass 2 packs each chunk
     with those lengths and tables
-    and copies its payload back. `trace` (a `utils.metrics.Trace`, or
-    None) times the phases. Returns (host uint8 lengths, (hi - lo,)
+    and copies its payload back. Returns (host uint8 lengths, (hi - lo,)
     int64 bit lengths, the container-layout payload in pieces, the crc32
     of all of `data` or None)."""
     from . import engine
-    ph = _phases(trace)
     flat = np.frombuffer(data, dtype=np.uint8)
     n = flat.size
     copier = _Copier(dev)
     staged, counts = [], None
     for a, b in _chunks(lo, hi, du):
         seg = flat[min(a * du, n): min(b * du, n)]
-        with ph("blockify", seg.size):
+        with span("mhc.api.blockify", seg.size):
             units = copier.staging((b - a, du), torch.uint8)
             u = units.numpy().reshape(-1)
             u[: seg.size] = seg
             u[seg.size:] = 0
             n_valid = copier.staging((b - a,), torch.int32)
             n_valid.numpy()[:] = np.clip(n - np.arange(a, b) * du, 0, du)
-        with ph("h2d", units.numel() + 4 * n_valid.numel(), sync=dev):
+        with span("mhc.api.h2d", units.numel() + 4 * n_valid.numel()):
             st = engine.Staged(
                 mode=model.name, block_size=block_size, decode_unit=du,
                 orig_len=seg.size, n_units=b - a,
                 units=copier.ready(copier.start_to_device(units)),
                 n_valid=copier.ready(copier.start_to_device(n_valid)))
-        with ph("tables", seg.size, sync=dev):
+        with span("mhc.api.tables", seg.size):
             c = model.histogram(st.units, st.n_valid).long()
             counts = c if counts is None else counts + c
         staged.append(st)
     # the host's checksum runs while the device works through pass 1
-    with ph("crc32", n):
+    with span("mhc.api.crc32", n):
         checksum = (zlib.crc32(data) & 0xFFFFFFFF) if crc else None
-    with ph("tables", sync=dev):
+    with span("mhc.api.tables"):
         if reduce_counts is not None:
             counts = reduce_counts(counts)
         lengths, tables = model.tables_for(counts, dev)
@@ -307,16 +317,18 @@ def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
     payload, bit_lens, pending = [], [], []
 
     def finish(enc, handle):
-        with ph("d2h"):
-            payload.append(engine.payload_bytes(enc, copier.host(handle)))
+        with span("mhc.api.d2h"):
+            be = copier.host(handle)
+            with span("mhc.api.join"):
+                payload.append(engine.payload_bytes(enc, be))
 
     for st in staged:
-        with ph("pack", st.orig_len, sync=dev):
+        with span("mhc.api.pack", st.orig_len):
             enc = engine.encode(st, lengths=lengths, tables=tables,
                                 pack_method=pack_method)
             be = engine.be_payload(enc)
         bit_lens.append(enc.bit_lens)
-        with ph("d2h", be.numel(), sync=dev):
+        with span("mhc.api.d2h", be.numel()):
             pending.append((enc, copier.start_to_host(be)))
         del be
         if len(pending) > 1:
@@ -375,36 +387,33 @@ def decompress(blob: bytes, verify: bool = True, device=None) -> bytes:
     """MHTC container of either mode and either payload layout ->
     original bytes, decoded on `device` (None: the first CUDA card;
     raises without one)."""
-    meta = container.parse_container(blob)
-    if meta.orig_len == 0:
-        # an orig_len rewritten to 0 still meets the crc of the bytes
-        if verify:
-            container.verify_crc(b"", meta)
-        return b""
-    dev = resolve_device(device)
-    # before any upload or allocation
-    _, byte_lens, starts = check_parsed(meta)
-    trace = _tracer()
-    data = decode_range(blob, meta, starts, 0, len(byte_lens), dev,
-                        trace=trace)
-    with _phases(trace)("crc32", len(data)):
-        if verify:
-            container.verify_crc(data, meta)
-    if trace is not None:
-        print(f"[mhc-trace decompress] {trace.dumps()}", file=sys.stderr)
-    return data
+    with _call("decompress", len(blob)):
+        with span("mhc.api.parse", len(blob)):
+            meta = container.parse_container(blob)
+            if meta.orig_len:
+                dev = resolve_device(device)
+                # before any upload or allocation
+                _, byte_lens, starts = check_parsed(meta)
+        if meta.orig_len == 0:
+            # an orig_len rewritten to 0 still meets the crc of the bytes
+            if verify:
+                container.verify_crc(b"", meta)
+            return b""
+        data = decode_range(blob, meta, starts, 0, len(byte_lens), dev)
+        with span("mhc.api.crc32", len(data)):
+            if verify:
+                container.verify_crc(data, meta)
+        return data
 
 
 def decode_range(blob: bytes, meta, starts: np.ndarray, lo: int, hi: int,
-                 dev, trace=None) -> bytes:
+                 dev) -> bytes:
     """The original bytes of units [lo, hi) of a parsed container
     (`starts` from `check_parsed`), decoded on `dev` in chunks of
     CHUNK_BYTES: each chunk's payload copied to the device, decoded
     (engine.decode) and copied back, the next chunk's upload beside this
-    chunk's kernels. `trace` (a `utils.metrics.Trace`, or None) times the
-    phases."""
+    chunk's kernels."""
     from . import engine
-    ph = _phases(trace)
     du = meta.decode_unit or meta.block_size
     chunks = _chunks(lo, hi, du)
     if not chunks:
@@ -415,14 +424,14 @@ def decode_range(blob: bytes, meta, starts: np.ndarray, lo: int, hi: int,
 
     def upload(a, b):
         start, end = int(starts[a]), int(starts[b])
-        with ph("h2d", end - start, sync=dev):
+        with span("mhc.api.h2d", end - start):
             host = copier.staging((end - start,), torch.uint8)
             host.numpy()[:] = src[start:end]
             return copier.start_to_device(host)
 
     def finish(enc, handle):
         # a view of the host buffer: the one copy is the join below
-        with ph("d2h"):
+        with span("mhc.api.d2h"):
             out.append(copier.host(handle).reshape(-1)[: enc.orig_len])
 
     upload_next = upload(*chunks[0])
@@ -432,16 +441,16 @@ def decode_range(blob: bytes, meta, starts: np.ndarray, lo: int, hi: int,
         if i + 1 < len(chunks):
             upload_next = upload(*chunks[i + 1])
         enc = parsed_chunk(meta, a, b, payload)
-        with ph("decode", enc.orig_len, sync=dev):
+        with span("mhc.api.decode", enc.orig_len):
             rows = engine.decode(enc)
-        with ph("d2h", rows.numel(), sync=dev):
+        with span("mhc.api.d2h", rows.numel()):
             pending.append((enc, copier.start_to_host(rows)))
         del rows
         if len(pending) > 1:
             finish(*pending.pop(0))
     for p in pending:
         finish(*p)
-    with ph("d2h"):
+    with span("mhc.api.d2h"), span("mhc.api.join"):
         return b"".join(out)
 
 

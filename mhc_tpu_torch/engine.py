@@ -37,6 +37,15 @@ word-aligned in both modes, as in the reference; `fetch_payload` cuts it
 to the container's byte-aligned order-0 layout on the host.
 `assemble_container()` turns an EncodeResult into the container bytes
 that `mhc_tpu.api.compress` writes for the same input.
+
+Each host step is a span (`utils.metrics.span`; no span synchronises):
+`mhc.engine.encode` around the encode, and inside it `tables` (the
+table build, the lengths' fetch started), `pack`, `mhc.wait.bits` (the
+bits fetch), `plan` (the literal rule and bounds; the result's lengths),
+`upload` and `compact`; `mhc.engine.decode` around the decode, and
+inside it `decode_plan` (the units' checks, lengths and literal mask),
+`upload`, `tables`, `expand` and `rows` (K7 and the literal rows), each
+`mhc.engine.<step>`, the wrappers' launches `mhc.launch.<kernel>`.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from .models.entropy import get_model
 from .ops import bitpack
 from .ops.huffman import MAX_CODE_LEN
 from .ops.kernels import decode_cuda, encode_cuda, stages_cuda
+from .utils.metrics import span
 
 # the reference's `pack_method` values the port carries
 PACK_METHODS = ("fused", "dense", "pallas")
@@ -137,43 +147,53 @@ def encode(st: Staged, lengths=None, pack_method: str | None = None,
     (`tables_from_lengths`) unless `tables`, that set already built on
     the units' device, is given with it; `pack_method` is "fused" (None,
     K3), "dense" (K5 then K4) or "pallas" (K5 then K6)."""
-    pack_method = check_pack_method(pack_method)
-    model = get_model(st.mode)
-    dev = st.units.device
-    if lengths is None:
-        if tables is not None:
-            raise ValueError("tables given without their lengths")
-        lengths, tables = model.tables_for(
-            model.histogram(st.units, st.n_valid), dev)
-    elif tables is None:
-        tables = model.tables_from_lengths(lengths, dev)
-    elif tables["codes"].device != dev or (torch.is_tensor(lengths)
-                                           and lengths.device != dev):
-        raise ValueError(f"tables on {tables['codes'].device} for units "
-                         f"on {dev}")
-    lengths_host = _start_fetch(lengths)
-    tab = (tables["codes"], tables["lengths"])
-    aligned = container.aligned_payload(model.mode)
-    if (pack_method == "pallas" and aligned
-            and st.decode_unit == st.block_size):
-        # the reference's pack_blocks_to_payload: the bubble stream goes
-        # straight to the payload, with no words plane
-        bubbles = encode_cuda.bubble_pack(
-            encode_cuda.lookup_cl(st.units, st.n_valid, *tab))
-        padded = stages_cuda.bubbles_to_payload(*bubbles)
-        bit_lens = bubbles[3].cpu().numpy().astype(np.int64)
-        # a copy of the streams, so the result does not hold the padding
-        payload = padded[: int(((bit_lens + 31) // 32).sum())].clone()
-    else:
-        payload, bit_lens = compact(st, *_pack(st, tab, pack_method),
-                                    aligned)
-    return EncodeResult(
-        mode=st.mode, block_size=st.block_size, decode_unit=st.decode_unit,
-        orig_len=st.orig_len, n_units=st.n_units,
-        # the bits fetch above synchronised the stream, copy included
-        lengths=lengths_host.numpy(),
-        byte_lens=container.stream_byte_lens(bit_lens, model.mode),
-        bit_lens=bit_lens, payload=payload, aligned=aligned)
+    with span("mhc.engine.encode", st.orig_len):
+        pack_method = check_pack_method(pack_method)
+        model = get_model(st.mode)
+        dev = st.units.device
+        with span("mhc.engine.tables"):
+            if lengths is None:
+                if tables is not None:
+                    raise ValueError("tables given without their lengths")
+                lengths, tables = model.tables_for(
+                    model.histogram(st.units, st.n_valid), dev)
+            elif tables is None:
+                tables = model.tables_from_lengths(lengths, dev)
+            elif tables["codes"].device != dev or (
+                    torch.is_tensor(lengths) and lengths.device != dev):
+                raise ValueError(f"tables on {tables['codes'].device} for "
+                                 f"units on {dev}")
+            lengths_host = _start_fetch(lengths)
+        tab = (tables["codes"], tables["lengths"])
+        aligned = container.aligned_payload(model.mode)
+        if (pack_method == "pallas" and aligned
+                and st.decode_unit == st.block_size):
+            # the reference's pack_blocks_to_payload: the bubble stream
+            # goes straight to the payload, with no words plane
+            with span("mhc.engine.pack"):
+                bubbles = encode_cuda.bubble_pack(
+                    encode_cuda.lookup_cl(st.units, st.n_valid, *tab))
+                padded = stages_cuda.bubbles_to_payload(*bubbles)
+            with span("mhc.wait.bits"):
+                bit_lens = bubbles[3].cpu().numpy().astype(np.int64)
+            # a copy of the streams, so the result does not hold the
+            # padding
+            with span("mhc.engine.plan"):
+                payload = padded[: int(((bit_lens + 31) // 32).sum())].clone()
+        else:
+            with span("mhc.engine.pack"):
+                packed = _pack(st, tab, pack_method)
+            payload, bit_lens = compact(st, *packed, aligned)
+        with span("mhc.engine.plan"):
+            return EncodeResult(
+                mode=st.mode, block_size=st.block_size,
+                decode_unit=st.decode_unit, orig_len=st.orig_len,
+                n_units=st.n_units,
+                # the bits fetch above synchronised the stream, copy
+                # included
+                lengths=lengths_host.numpy(),
+                byte_lens=container.stream_byte_lens(bit_lens, model.mode),
+                bit_lens=bit_lens, payload=payload, aligned=aligned)
 
 
 def compact(st: Staged, words: torch.Tensor, bits: torch.Tensor,
@@ -184,16 +204,19 @@ def compact(st: Staged, words: torch.Tensor, bits: torch.Tensor,
     a block (`bitpack.literal_unit_mask`: a literal's bits are
     n_valid * 8), the word offsets and literal flags uploaded in one
     copy, then one launch of K10+K8 (`stages_cuda.compact_units`)."""
-    bits_host = bits.cpu().numpy().astype(np.int64)
-    nv = host_n_valid(st.orig_len, st.decode_unit, st.n_units)
-    raw = (bitpack.literal_unit_mask(bits_host, nv, aligned)
-           if st.decode_unit != st.block_size
-           else np.zeros(st.n_units, bool))
-    bit_lens = np.where(raw, nv * 8, bits_host)
-    bounds = _bounds((bit_lens + 31) // 32)
+    with span("mhc.wait.bits"):
+        bits_host = bits.cpu().numpy().astype(np.int64)
+    with span("mhc.engine.plan"):
+        nv = host_n_valid(st.orig_len, st.decode_unit, st.n_units)
+        raw = (bitpack.literal_unit_mask(bits_host, nv, aligned)
+               if st.decode_unit != st.block_size
+               else np.zeros(st.n_units, bool))
+        bit_lens = np.where(raw, nv * 8, bits_host)
+        bounds = _bounds((bit_lens + 31) // 32)
     offsets, literal = upload(words.device, bounds, raw)
-    payload = stages_cuda.compact_units(words, st.units, st.n_valid,
-                                        offsets, literal, int(bounds[-1]))
+    with span("mhc.engine.compact"):
+        payload = stages_cuda.compact_units(
+            words, st.units, st.n_valid, offsets, literal, int(bounds[-1]))
     return payload, bit_lens
 
 
@@ -242,15 +265,17 @@ def upload(dev, *arrays: np.ndarray) -> list:
     """Host numpy arrays -> tensors of their dtypes on `dev` (bool as
     uint8), through one copy: the arrays' bytes at 8-byte aligned
     offsets of one buffer, each tensor a view of it."""
-    arrays = [np.ascontiguousarray(a.view(np.uint8) if a.dtype == bool
-                                   else a) for a in arrays]
-    starts = _bounds([-(-a.nbytes // 8) * 8 for a in arrays])
-    buf = np.zeros(int(starts[-1]), np.uint8)
-    for a, s in zip(arrays, starts):
-        buf[s: s + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev_buf = torch.from_numpy(buf).to(dev)
-    return [dev_buf[s: s + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
-            .reshape(a.shape) for a, s in zip(arrays, starts)]
+    with span("mhc.engine.upload"):
+        arrays = [np.ascontiguousarray(a.view(np.uint8) if a.dtype == bool
+                                       else a) for a in arrays]
+        starts = _bounds([-(-a.nbytes // 8) * 8 for a in arrays])
+        buf = np.zeros(int(starts[-1]), np.uint8)
+        for a, s in zip(arrays, starts):
+            buf[s: s + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev_buf = torch.from_numpy(buf).to(dev)
+        return [dev_buf[s: s + a.nbytes]
+                .view(torch.from_numpy(a[:0]).dtype).reshape(a.shape)
+                for a, s in zip(arrays, starts)]
 
 
 def check_unit_lengths(byte_lens: np.ndarray, du: int, aligned: bool,
@@ -296,32 +321,38 @@ def _decode_inputs(enc: EncodeResult):
     dev = enc.payload.device
     du = enc.decode_unit
     R = enc.n_units
-    byte_lens = np.asarray(enc.byte_lens, np.int64)
-    check_unit_lengths(byte_lens, du, enc.aligned, enc.orig_len)
-    if enc.bit_lens is None and not enc.aligned:
-        # parsed unaligned container: byte-granular expansion (K12)
-        lens = byte_lens
-        W = int(-(-byte_lens.max() // 4)) + 1 if R else 1
-    else:
-        # word-aligned payload: an engine result knows each unit's words
-        # from its bits; a parsed aligned container stores words * 4
-        lens = ((enc.bit_lens + 31) // 32 if enc.bit_lens is not None
-                else byte_lens // 4).astype(np.int64)
-        W = int(lens.max()) + 1 if R else 1
-    nv = host_n_valid(enc.orig_len, du, R)
-    raw = np.zeros(R, bool)
-    if enc.raw_units and du != enc.block_size:
-        # literal detection follows the CONTAINER layout (the rule the
-        # encoder's substitution applies), never the engine's word counts:
-        # an order-0 unit whose coded bytes fall short of its length can
-        # still round up to the literal's word count
-        raw = bitpack.raw_unit_mask(byte_lens, nv, enc.aligned)
-    lengths, offsets, n_dec, rows = upload(
-        dev, np.asarray(enc.lengths, np.uint8), _bounds(lens),
-        np.where(raw, 0, nv).astype(np.int32),
-        np.flatnonzero(raw).astype(np.int64))
-    tables = model.tables_from_lengths(lengths, dev)
-    words = stages_cuda.expand_units(enc.payload, offsets, W)
+    with span("mhc.engine.decode_plan"):
+        byte_lens = np.asarray(enc.byte_lens, np.int64)
+        check_unit_lengths(byte_lens, du, enc.aligned, enc.orig_len)
+        if enc.bit_lens is None and not enc.aligned:
+            # parsed unaligned container: byte-granular expansion (K12)
+            lens = byte_lens
+            W = int(-(-byte_lens.max() // 4)) + 1 if R else 1
+        else:
+            # word-aligned payload: an engine result knows each unit's
+            # words from its bits; a parsed aligned container stores
+            # words * 4
+            lens = ((enc.bit_lens + 31) // 32 if enc.bit_lens is not None
+                    else byte_lens // 4).astype(np.int64)
+            W = int(lens.max()) + 1 if R else 1
+        nv = host_n_valid(enc.orig_len, du, R)
+        raw = np.zeros(R, bool)
+        if enc.raw_units and du != enc.block_size:
+            # literal detection follows the CONTAINER layout (the rule the
+            # encoder's substitution applies), never the engine's word
+            # counts: an order-0 unit whose coded bytes fall short of its
+            # length can still round up to the literal's word count
+            raw = bitpack.raw_unit_mask(byte_lens, nv, enc.aligned)
+        plan = (np.asarray(enc.lengths, np.uint8), _bounds(lens),
+                np.where(raw, 0, nv).astype(np.int32),
+                np.flatnonzero(raw).astype(np.int64))
+    lengths, offsets, n_dec, rows = upload(dev, *plan)
+    # a step span around a single launch still holds the stretch before
+    # the launch span's own start, which would fall to the caller's span
+    with span("mhc.engine.tables"):
+        tables = model.tables_from_lengths(lengths, dev)
+    with span("mhc.engine.expand"):
+        words = stages_cuda.expand_units(enc.payload, offsets, W)
     return words, n_dec, raw, tables, rows
 
 
@@ -341,14 +372,16 @@ def decode(enc: EncodeResult) -> torch.Tensor:
     skipped) -> literal rows (K14). Returns the (n_units, row_width(enc))
     uint8 rows on the payload's device, zero past each unit's length
     (fetch_bytes trims)."""
-    words, n_dec, raw, tables, rows = _decode_inputs(enc)
-    out = decode_cuda.decode_units(
-        words, n_dec, tables["lim"], tables["base"], tables["first_code"],
-        tables["sorted_syms"], n_out=row_width(enc),
-        markov=get_model(enc.mode).markov)
-    if raw.any():
-        stages_cuda.literal_rows(out, words, rows)
-    return out
+    with span("mhc.engine.decode", enc.orig_len):
+        words, n_dec, raw, tables, rows = _decode_inputs(enc)
+        with span("mhc.engine.rows"):
+            out = decode_cuda.decode_units(
+                words, n_dec, tables["lim"], tables["base"],
+                tables["first_code"], tables["sorted_syms"],
+                n_out=row_width(enc), markov=get_model(enc.mode).markov)
+            if raw.any():
+                stages_cuda.literal_rows(out, words, rows)
+        return out
 
 
 def fetch_bytes(enc: EncodeResult, out: torch.Tensor) -> bytes:

@@ -10,7 +10,11 @@ machines without nvcc.
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()` as an int; `check` turns a non-zero code into an
 exception with CUDA's own message, and `launched` counts the launch in
-`LAUNCHES`, so a run can show which kernels its path went through.
+`LAUNCHES`, so a run can show which kernels its path went through. Each
+wrapper call (its argument checks, output allocation, the C call and the
+count; on the CPU its plain version) is one `utils.metrics.span`,
+`mhc.launch.<kernel>` under the name `LAUNCHES` counts: the host's cost
+to put that kernel on the card.
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from ..huffman import MAX_CODE_LEN
+from ...utils.metrics import span
 from . import _build
 
 _P = ctypes.c_void_p
@@ -167,19 +168,22 @@ def decode_lut(lim: torch.Tensor, base: torch.Tensor,
     """The canonical decode tables -> the decode kernel's table
     (`decode_lut_plain`'s bytes). CPU tensors take the plain version;
     CUDA tensors launch the build kernel."""
-    kind = _build.require_cuda_or_cpu(lim, base, first_code, sorted_syms)
-    _check_tables(lim, base, first_code, sorted_syms)
-    if kind == "cpu":
-        return decode_lut_plain(lim, base, first_code, sorted_syms, markov)
-    lib, fn = _build.load("decode", "mhc_decode_lut", _LUT_ARGTYPES)
-    dev = lim.device
-    lut = torch.empty((lut_bytes(markov),), dtype=torch.uint8, device=dev)
-    rc = fn(lim.contiguous().data_ptr(), base.contiguous().data_ptr(),
-            first_code.contiguous().data_ptr(),
-            sorted_syms.contiguous().data_ptr(), int(markov), lut.data_ptr(),
-            _build.stream_ptr(dev))
-    _build.launched(lib, rc, "decode_lut" if markov else "decode_lut_order0")
-    return lut
+    kernel = "decode_lut" if markov else "decode_lut_order0"
+    with span("mhc.launch." + kernel):
+        kind = _build.require_cuda_or_cpu(lim, base, first_code, sorted_syms)
+        _check_tables(lim, base, first_code, sorted_syms)
+        if kind == "cpu":
+            return decode_lut_plain(lim, base, first_code, sorted_syms, markov)
+        lib, fn = _build.load("decode", "mhc_decode_lut", _LUT_ARGTYPES)
+        dev = lim.device
+        lut = torch.empty((lut_bytes(markov),), dtype=torch.uint8,
+                          device=dev)
+        rc = fn(lim.contiguous().data_ptr(), base.contiguous().data_ptr(),
+                first_code.contiguous().data_ptr(),
+                sorted_syms.contiguous().data_ptr(), int(markov),
+                lut.data_ptr(), _build.stream_ptr(dev))
+        _build.launched(lib, rc, kernel)
+        return lut
 
 
 def decode_units(words: torch.Tensor, n_valid: torch.Tensor,
@@ -192,18 +196,19 @@ def decode_units(words: torch.Tensor, n_valid: torch.Tensor,
     which reads only row 0 of each table). CPU tensors take the plain
     version; CUDA tensors build the decode table (`decode_lut`) and
     launch K7m or K7o."""
-    if _check(words, n_valid, lim, base, first_code, sorted_syms) == "cpu":
-        return decode_units_plain(words, n_valid, lim, base, first_code,
-                                  sorted_syms, n_out, markov)
-    R, W = words.shape
-    dev = words.device
-    out = torch.empty((R, n_out), dtype=torch.uint8, device=dev)
-    if R * n_out == 0:
+    kernel = "decode_units" if markov else "decode_units_order0"
+    with span("mhc.launch." + kernel):
+        if _check(words, n_valid, lim, base, first_code, sorted_syms) == "cpu":
+            return decode_units_plain(words, n_valid, lim, base, first_code,
+                                      sorted_syms, n_out, markov)
+        R, W = words.shape
+        dev = words.device
+        out = torch.empty((R, n_out), dtype=torch.uint8, device=dev)
+        if R * n_out == 0:
+            return out
+        lut = decode_lut(lim, base, first_code, sorted_syms, markov)
+        lib, fn = _build.load("decode", "mhc_decode_units", _ARGTYPES)
+        rc = fn(words.data_ptr(), R, W, n_valid.data_ptr(), lut.data_ptr(),
+                out.data_ptr(), n_out, int(markov), _build.stream_ptr(dev))
+        _build.launched(lib, rc, kernel)
         return out
-    lut = decode_lut(lim, base, first_code, sorted_syms, markov)
-    lib, fn = _build.load("decode", "mhc_decode_units", _ARGTYPES)
-    rc = fn(words.data_ptr(), R, W, n_valid.data_ptr(), lut.data_ptr(),
-            out.data_ptr(), n_out, int(markov), _build.stream_ptr(dev))
-    _build.launched(lib, rc,
-                    "decode_units" if markov else "decode_units_order0")
-    return out

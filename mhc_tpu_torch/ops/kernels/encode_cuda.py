@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from ..bitpack import words_for_block
+from ...utils.metrics import span
 from . import _build
 
 _P = ctypes.c_void_p
@@ -151,22 +152,23 @@ def pack_units(units: torch.Tensor, n_valid: torch.Tensor,
     codes and lengths -> (words (R, words_for_block(n)) int32 bit
     patterns, zero past each stream; bits (R,) int32). CPU tensors take
     the plain version; CUDA tensors launch K3."""
-    if _check(units, n_valid, codes, lengths) == "cpu":
-        return pack_units_plain(units, n_valid, codes, lengths)
-    lib, fn = _build.load("encode", "mhc_pack_units", _PACK_ARGTYPES)
-    R, n = units.shape
-    W = words_for_block(n)
-    dev = units.device
-    words = torch.zeros((R, W), dtype=torch.int32, device=dev)
-    bits = torch.empty((R,), dtype=torch.int32, device=dev)
-    if R == 0:
+    with span("mhc.launch.pack_units"):
+        if _check(units, n_valid, codes, lengths) == "cpu":
+            return pack_units_plain(units, n_valid, codes, lengths)
+        lib, fn = _build.load("encode", "mhc_pack_units", _PACK_ARGTYPES)
+        R, n = units.shape
+        W = words_for_block(n)
+        dev = units.device
+        words = torch.zeros((R, W), dtype=torch.int32, device=dev)
+        bits = torch.empty((R,), dtype=torch.int32, device=dev)
+        if R == 0:
+            return words, bits
+        codes16, lens8 = _tables(codes, lengths)
+        rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, codes16.data_ptr(),
+                lens8.data_ptr(), words.data_ptr(), W, bits.data_ptr(),
+                _build.stream_ptr(dev))
+        _build.launched(lib, rc, "pack_units")
         return words, bits
-    codes16, lens8 = _tables(codes, lengths)
-    rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, codes16.data_ptr(),
-            lens8.data_ptr(), words.data_ptr(), W, bits.data_ptr(),
-            _build.stream_ptr(dev))
-    _build.launched(lib, rc, "pack_units")
-    return words, bits
 
 
 def lookup_cl(units: torch.Tensor, n_valid: torch.Tensor,
@@ -174,39 +176,41 @@ def lookup_cl(units: torch.Tensor, n_valid: torch.Tensor,
     """(R, n) uint8 units, (R,) int32 n_valid, (256, 256) int32 canonical
     codes and lengths -> (R, n) int32 cl plane, 0 past n_valid. CPU
     tensors take the plain version; CUDA tensors launch K5."""
-    if _check(units, n_valid, codes, lengths) == "cpu":
-        return lookup_cl_plain(units, n_valid, codes, lengths)
-    lib, fn = _build.load("encode", "mhc_lookup_cl", _LOOKUP_ARGTYPES)
-    R, n = units.shape
-    dev = units.device
-    cl = torch.empty((R, n), dtype=torch.int32, device=dev)
-    if R * n == 0:
+    with span("mhc.launch.lookup_cl"):
+        if _check(units, n_valid, codes, lengths) == "cpu":
+            return lookup_cl_plain(units, n_valid, codes, lengths)
+        lib, fn = _build.load("encode", "mhc_lookup_cl", _LOOKUP_ARGTYPES)
+        R, n = units.shape
+        dev = units.device
+        cl = torch.empty((R, n), dtype=torch.int32, device=dev)
+        if R * n == 0:
+            return cl
+        codes16, lens8 = _tables(codes, lengths)
+        rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, codes16.data_ptr(),
+                lens8.data_ptr(), cl.data_ptr(), _build.stream_ptr(dev))
+        _build.launched(lib, rc, "lookup_cl")
         return cl
-    codes16, lens8 = _tables(codes, lengths)
-    rc = fn(units.data_ptr(), n_valid.data_ptr(), R, n, codes16.data_ptr(),
-            lens8.data_ptr(), cl.data_ptr(), _build.stream_ptr(dev))
-    _build.launched(lib, rc, "lookup_cl")
-    return cl
 
 
 def pack_cl(cl: torch.Tensor):
     """(R, n) int32 cl plane -> (words (R, words_for_block(n)) int32 bit
     patterns, zero past each stream; bits (R,) int32). CPU tensors take
     the plain version; CUDA tensors launch K4."""
-    if _check_cl(cl) == "cpu":
-        return pack_cl_plain(cl)
-    lib, fn = _build.load("encode", "mhc_pack_cl", _PACK_CL_ARGTYPES)
-    R, n = cl.shape
-    W = words_for_block(n)
-    dev = cl.device
-    words = torch.zeros((R, W), dtype=torch.int32, device=dev)
-    bits = torch.empty((R,), dtype=torch.int32, device=dev)
-    if R == 0:
+    with span("mhc.launch.pack_cl"):
+        if _check_cl(cl) == "cpu":
+            return pack_cl_plain(cl)
+        lib, fn = _build.load("encode", "mhc_pack_cl", _PACK_CL_ARGTYPES)
+        R, n = cl.shape
+        W = words_for_block(n)
+        dev = cl.device
+        words = torch.zeros((R, W), dtype=torch.int32, device=dev)
+        bits = torch.empty((R,), dtype=torch.int32, device=dev)
+        if R == 0:
+            return words, bits
+        rc = fn(cl.data_ptr(), R, n, words.data_ptr(), W, bits.data_ptr(),
+                _build.stream_ptr(dev))
+        _build.launched(lib, rc, "pack_cl")
         return words, bits
-    rc = fn(cl.data_ptr(), R, n, words.data_ptr(), W, bits.data_ptr(),
-            _build.stream_ptr(dev))
-    _build.launched(lib, rc, "pack_cl")
-    return words, bits
 
 
 def bubble_pack(cl: torch.Tensor):
@@ -217,20 +221,21 @@ def bubble_pack(cl: torch.Tensor):
     pending bits after the last round, bits the stream's length; bw and
     bv are contiguous, unit-major. CPU tensors take the plain version;
     CUDA tensors launch K6."""
-    if _check_cl(cl) == "cpu":
-        return bubble_pack_plain(cl)
-    lib, fn = _build.load("encode", "mhc_bubble_pack", _BUBBLE_ARGTYPES)
-    R, n = cl.shape
-    rounds = (n + 1) // 2
-    dev = cl.device
-    # the kernel writes every element
-    bw = torch.empty((R, rounds), dtype=torch.int32, device=dev)
-    bv = torch.empty((R, rounds), dtype=torch.uint8, device=dev)
-    tail = torch.empty((R,), dtype=torch.int32, device=dev)
-    bits = torch.empty((R,), dtype=torch.int32, device=dev)
-    if R == 0:
+    with span("mhc.launch.bubble_pack"):
+        if _check_cl(cl) == "cpu":
+            return bubble_pack_plain(cl)
+        lib, fn = _build.load("encode", "mhc_bubble_pack", _BUBBLE_ARGTYPES)
+        R, n = cl.shape
+        rounds = (n + 1) // 2
+        dev = cl.device
+        # the kernel writes every element
+        bw = torch.empty((R, rounds), dtype=torch.int32, device=dev)
+        bv = torch.empty((R, rounds), dtype=torch.uint8, device=dev)
+        tail = torch.empty((R,), dtype=torch.int32, device=dev)
+        bits = torch.empty((R,), dtype=torch.int32, device=dev)
+        if R == 0:
+            return bw, bv, tail, bits
+        rc = fn(cl.data_ptr(), R, n, bw.data_ptr(), bv.data_ptr(),
+                tail.data_ptr(), bits.data_ptr(), _build.stream_ptr(dev))
+        _build.launched(lib, rc, "bubble_pack")
         return bw, bv, tail, bits
-    rc = fn(cl.data_ptr(), R, n, bw.data_ptr(), bv.data_ptr(),
-            tail.data_ptr(), bits.data_ptr(), _build.stream_ptr(dev))
-    _build.launched(lib, rc, "bubble_pack")
-    return bw, bv, tail, bits

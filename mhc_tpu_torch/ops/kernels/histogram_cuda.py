@@ -33,6 +33,7 @@ import functools
 
 import torch
 
+from ...utils.metrics import span
 from . import _build
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -108,15 +109,18 @@ def _launch(fn_name: str, kernel: str, units: torch.Tensor,
 def markov_hist(units: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     """(R, n) uint8 units, (R,) int32 n_valid -> (256, 256) int64 counts.
     CPU tensors take the plain version; CUDA tensors launch K1."""
-    if _check(units, n_valid) == "cpu":
-        return markov_hist_plain(units, n_valid)
-    return _launch("mhc_markov_hist", "markov_hist", units, n_valid,
-                   (256, 256))
+    with span("mhc.launch.markov_hist"):
+        if _check(units, n_valid) == "cpu":
+            return markov_hist_plain(units, n_valid)
+        return _launch("mhc_markov_hist", "markov_hist", units, n_valid,
+                       (256, 256))
 
 
 def order0_hist(units: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     """(R, n) uint8 units, (R,) int32 n_valid -> (256,) int64 counts.
     CPU tensors take the plain version; CUDA tensors launch K2."""
-    if _check(units, n_valid) == "cpu":
-        return order0_hist_plain(units, n_valid)
-    return _launch("mhc_order0_hist", "order0_hist", units, n_valid, (256,))
+    with span("mhc.launch.order0_hist"):
+        if _check(units, n_valid) == "cpu":
+            return order0_hist_plain(units, n_valid)
+        return _launch("mhc_order0_hist", "order0_hist", units, n_valid,
+                       (256,))

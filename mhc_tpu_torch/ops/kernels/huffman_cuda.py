@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from .. import canonical
+from ...utils.metrics import span
 from . import _build, tables_cuda
 
 MAX_CODE_LEN = 15
@@ -157,16 +158,19 @@ def code_lengths(counts: torch.Tensor) -> torch.Tensor:
     """(rows, 256) int32 or int64 counts -> (rows, 256) uint8 code
     lengths on the counts' device. CPU tensors take the plain version;
     CUDA tensors launch K11."""
-    if _check(counts) == "cpu":
-        return code_lengths_plain(counts)
-    lib, fn = _build.load("huffman", "mhc_code_lengths", _ARGTYPES)
-    out = torch.empty(counts.shape, dtype=torch.uint8, device=counts.device)
-    if counts.shape[0] == 0:
+    with span("mhc.launch.code_lengths"):
+        if _check(counts) == "cpu":
+            return code_lengths_plain(counts)
+        lib, fn = _build.load("huffman", "mhc_code_lengths", _ARGTYPES)
+        out = torch.empty(counts.shape, dtype=torch.uint8,
+                          device=counts.device)
+        if counts.shape[0] == 0:
+            return out
+        rc = fn(counts.data_ptr(), int(counts.dtype == torch.int64),
+                counts.shape[0], out.data_ptr(),
+                _build.stream_ptr(counts.device))
+        _build.launched(lib, rc, "code_lengths")
         return out
-    rc = fn(counts.data_ptr(), int(counts.dtype == torch.int64),
-            counts.shape[0], out.data_ptr(), _build.stream_ptr(counts.device))
-    _build.launched(lib, rc, "code_lengths")
-    return out
 
 
 def code_tables_plain(counts: torch.Tensor, rows: int):
@@ -183,20 +187,21 @@ def code_tables(counts: torch.Tensor, rows: int):
     its tables over the rows (order-0). CPU tensors take the plain
     version; CUDA tensors launch the fused build, K11 and K13's bodies in
     one kernel."""
-    dev = _check(counts)
-    if counts.shape[0] not in (1, rows):
-        raise ValueError(f"{counts.shape[0]} rows of counts for {rows} "
-                         "rows of tables")
-    if dev == "cpu":
-        return code_tables_plain(counts, rows)
-    lib, fn = _build.load("huffman", "mhc_code_tables", _TABLES_ARGTYPES)
-    lengths = torch.empty(counts.shape, dtype=torch.uint8,
-                          device=counts.device)
-    tables = tables_cuda.empty_tables(rows, counts.device)
-    if rows:
-        rc = fn(counts.data_ptr(), int(counts.dtype == torch.int64),
-                counts.shape[0], rows, lengths.data_ptr(),
-                *(t.data_ptr() for t in tables.values()),
-                _build.stream_ptr(counts.device))
-        _build.launched(lib, rc, "code_tables")
-    return lengths, tables
+    with span("mhc.launch.code_tables"):
+        dev = _check(counts)
+        if counts.shape[0] not in (1, rows):
+            raise ValueError(f"{counts.shape[0]} rows of counts for {rows} "
+                             "rows of tables")
+        if dev == "cpu":
+            return code_tables_plain(counts, rows)
+        lib, fn = _build.load("huffman", "mhc_code_tables", _TABLES_ARGTYPES)
+        lengths = torch.empty(counts.shape, dtype=torch.uint8,
+                              device=counts.device)
+        tables = tables_cuda.empty_tables(rows, counts.device)
+        if rows:
+            rc = fn(counts.data_ptr(), int(counts.dtype == torch.int64),
+                    counts.shape[0], rows, lengths.data_ptr(),
+                    *(t.data_ptr() for t in tables.values()),
+                    _build.stream_ptr(counts.device))
+            _build.launched(lib, rc, "code_tables")
+        return lengths, tables

@@ -19,6 +19,7 @@ import torch
 
 from .. import canonical
 from ..huffman import MAX_CODE_LEN
+from ...utils.metrics import span
 from . import _build
 
 _P = ctypes.c_void_p
@@ -38,25 +39,26 @@ def canonical_tables(lengths: torch.Tensor, rows: int) -> dict:
     contiguous, on the lengths' device; L == 1 repeats its tables over
     the rows. CPU tensors take the plain version; CUDA tensors launch
     K13."""
-    dev = _build.require_cuda_or_cpu(lengths)
-    if (lengths.dtype != torch.uint8 or lengths.dim() != 2
-            or lengths.shape[1] != 256):
-        raise ValueError("lengths must be an (L, 256) uint8 tensor")
-    if lengths.shape[0] not in (1, rows):
-        raise ValueError(f"{lengths.shape[0]} rows of lengths for {rows} "
-                         "rows of tables")
-    if not lengths.is_contiguous():
-        raise ValueError("lengths must be contiguous")
-    if dev == "cpu":
-        return canonical.canonical_tables_plain(lengths, rows)
-    lib, fn = _build.load("tables", "mhc_canonical_tables", _ARGTYPES)
-    out = empty_tables(rows, lengths.device)
-    if rows:
-        rc = fn(lengths.data_ptr(), lengths.shape[0], rows,
-                *(out[name].data_ptr() for name, _ in _LAYOUT),
-                _build.stream_ptr(lengths.device))
-        _build.launched(lib, rc, "canonical_tables")
-    return out
+    with span("mhc.launch.canonical_tables"):
+        dev = _build.require_cuda_or_cpu(lengths)
+        if (lengths.dtype != torch.uint8 or lengths.dim() != 2
+                or lengths.shape[1] != 256):
+            raise ValueError("lengths must be an (L, 256) uint8 tensor")
+        if lengths.shape[0] not in (1, rows):
+            raise ValueError(f"{lengths.shape[0]} rows of lengths for {rows} "
+                             "rows of tables")
+        if not lengths.is_contiguous():
+            raise ValueError("lengths must be contiguous")
+        if dev == "cpu":
+            return canonical.canonical_tables_plain(lengths, rows)
+        lib, fn = _build.load("tables", "mhc_canonical_tables", _ARGTYPES)
+        out = empty_tables(rows, lengths.device)
+        if rows:
+            rc = fn(lengths.data_ptr(), lengths.shape[0], rows,
+                    *(out[name].data_ptr() for name, _ in _LAYOUT),
+                    _build.stream_ptr(lengths.device))
+            _build.launched(lib, rc, "canonical_tables")
+        return out
 
 
 def empty_tables(rows: int, device) -> dict:

@@ -1,19 +1,51 @@
-"""Observability: phase timers, throughput counters, structured reports.
+"""Observability: the program's spans, phase reports, profiles.
 
-Counterpart of `mhc_tpu/utils/metrics.py`: the same `Trace` reports
-(seconds, bytes, GB/s and calls per phase), with a whole-device CUDA
-synchronisation in place of `jax.block_until_ready`, `torch_profile` in
-place of `jax_profile`, and the same `scaling_report`.
+Counterpart of `mhc_tpu/utils/metrics.py`. Every layer marks its steps
+with `span(name)`: the api's phases (`mhc.api.*`), the engine's host plan
+(`mhc.engine.*`), each kernel wrapper's launch (`mhc.launch.<kernel>`)
+and each place the host waits for the device (`mhc.wait.*`). A span
+never synchronises the device. With nothing listening it costs one flag
+check and one context lookup. While a `torch.profiler` runs, each span
+is a `record_function` range on the profiler's own clock, nested in the
+caller's ranges, so that the device trace's idle time can be put down to
+a program step. Inside `with tracing() as tr:` the spans of the current
+context (a thread's, never another's) are also recorded in `tr.spans`;
+`tr.report()` gives the reference's `Trace` report (seconds, bytes, GB/s
+and calls per phase) of the api's phases, host time alone.
+`torch_profile` stands in for `jax_profile`, and `scaling_report` is the
+reference's.
 """
 
 from __future__ import annotations
 
+import contextvars
 import json
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _profiler
+
+# the trace the current context records into, or None
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("mhc_trace",
+                                                         default=None)
+# the span of a step that nothing listens to
+_OFF = nullcontext()
+
+
+class Span(NamedTuple):
+    """One recorded span: its parent's index in `Trace.spans` (None at
+    the top), the id shared by every span under one top-level span,
+    perf_counter_ns at entry and at exit (None while open), and the
+    bytes it handled."""
+    name: str
+    parent: int | None
+    call: int
+    t0_ns: int
+    t1_ns: int | None
+    nbytes: int
 
 
 @dataclass
@@ -27,40 +59,51 @@ class PhaseStats:
         return self.bytes / self.seconds / 1e9 if self.seconds else None
 
 
-def _cuda_devices(sync) -> set:
-    """The CUDA devices that `sync` (a tensor, a torch.device or a
-    sequence of them) names."""
-    if isinstance(sync, (list, tuple)):
-        return set().union(*map(_cuda_devices, sync))
-    dev = sync.device if torch.is_tensor(sync) else torch.device(sync)
-    return {dev} if dev.type == "cuda" else set()
-
-
 @dataclass
 class Trace:
-    """Collects per-phase wall-clock + throughput for one codec run."""
-    phases: dict[str, PhaseStats] = field(default_factory=dict)
+    """The spans of one context, in the order they were entered."""
+    spans: list = field(default_factory=list)
+    _open: list = field(default_factory=list, repr=False)
+    _calls: int = field(default=0, repr=False)
 
-    @contextmanager
-    def phase(self, name: str, nbytes: int = 0, sync=None):
-        """Time a phase. `sync`: a tensor, a torch.device or a sequence of
-        them; every CUDA device named is synchronised as a whole before
-        the phase ends, so device work on any of its streams (the host
-        API copies on a side stream) is attributed to the phase that
-        launched it. CPU tensors need no sync."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                for dev in _cuda_devices(sync):
-                    torch.cuda.synchronize(dev)
-            st = self.phases.setdefault(name, PhaseStats())
-            st.seconds += time.perf_counter() - t0
-            st.bytes += nbytes
+    def _enter(self, name: str, nbytes: int) -> int:
+        parent = self._open[-1] if self._open else None
+        if parent is None:
+            call, self._calls = self._calls, self._calls + 1
+        else:
+            call = self.spans[parent].call
+        self.spans.append(Span(name, parent, call, time.perf_counter_ns(),
+                               None, nbytes))
+        self._open.append(len(self.spans) - 1)
+        return self._open[-1]
+
+    def _exit(self, i: int) -> None:
+        self.spans[i] = self.spans[i]._replace(t1_ns=time.perf_counter_ns())
+        self._open.pop()
+
+    def report(self, omit=(), root: int | None = None) -> dict:
+        """{phase: {seconds, bytes, GBps, calls}} over the api's phases:
+        the `mhc.api.<phase>` spans directly under the span at index
+        `root`, or (None) under any top-level `mhc.api.*` span, each
+        phase named by its last part, those in `omit` left out."""
+        stats: dict = {}
+        for s in self.spans:
+            if s.parent is None or s.t1_ns is None:
+                continue
+            top = self.spans[s.parent]
+            phase = s.name.rsplit(".", 1)[-1]
+            if root is None:
+                under = (top.parent is None
+                         and top.name.startswith("mhc.api."))
+            else:
+                under = s.parent == root
+            if (not under or phase in omit
+                    or not s.name.startswith("mhc.api.")):
+                continue
+            st = stats.setdefault(phase, PhaseStats())
+            st.seconds += (s.t1_ns - s.t0_ns) / 1e9
+            st.bytes += s.nbytes
             st.calls += 1
-
-    def report(self) -> dict:
         return {
             name: {
                 "seconds": round(st.seconds, 6),
@@ -68,11 +111,54 @@ class Trace:
                 "GBps": round(st.gbps, 4) if st.gbps else None,
                 "calls": st.calls,
             }
-            for name, st in self.phases.items()
+            for name, st in stats.items()
         }
 
-    def dumps(self) -> str:
-        return json.dumps(self.report())
+    def dumps(self, omit=(), root: int | None = None) -> str:
+        return json.dumps(self.report(omit, root))
+
+
+@contextmanager
+def tracing(join: bool = False):
+    """Record the spans of the current context into a new `Trace` for
+    the block's length: `with metrics.tracing() as tr: api.compress(...)`.
+    Other threads' spans stay out. With `join`, a trace already active
+    in the context is the one yielded and recorded into."""
+    tr = _ACTIVE.get() if join else None
+    if tr is not None:
+        yield tr
+        return
+    tr = Trace()
+    token = _ACTIVE.set(tr)
+    try:
+        yield tr
+    finally:
+        _ACTIVE.reset(token)
+
+
+def span(name: str, nbytes: int = 0):
+    """The context of one program step named `name` (`mhc.<layer>.<step>`)
+    that handles `nbytes` bytes: a `record_function` range while a
+    profiler runs, a `Span` of the active `tracing()` (the context yields
+    its index in `Trace.spans`), and otherwise one shared no-op context."""
+    if not _profiler._is_profiler_enabled and _ACTIVE.get() is None:
+        return _OFF
+    return _recorded(name, nbytes)
+
+
+@contextmanager
+def _recorded(name: str, nbytes: int):
+    tr = _ACTIVE.get()
+    with (torch.profiler.record_function(name)
+          if _profiler._is_profiler_enabled else _OFF):
+        if tr is None:
+            yield
+            return
+        i = tr._enter(name, nbytes)
+        try:
+            yield i
+        finally:
+            tr._exit(i)
 
 
 @contextmanager

@@ -7,6 +7,7 @@ also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import collections
 import hashlib
 import zlib
 
@@ -1190,3 +1191,47 @@ def test_multigb_entry_point_on_the_card(dev, tmp_path):
     assert res["peak_device_bytes"]["compress"] > 0
     assert res["launches"]["compress"]["code_tables"] == 4
     assert res["launches"]["decompress"]["decode_units"] == 4
+
+
+@pytest.mark.parametrize("pack_method", engine.PACK_METHODS)
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_launch_spans_name_every_launch(dev, monkeypatch, mode, pack_method):
+    """Under torch.profiler each kernel wrapper's CUDA branch is one
+    `mhc.launch.<kernel>` range, named as `_build.LAUNCHES` counts it, in
+    the engine and in the api; a trace changes no byte, and no span
+    synchronises the card."""
+    from torch.profiler import ProfilerActivity, profile
+    from mhc_tpu_torch.utils import metrics
+    data = _data(300_001, 5)
+    st = engine.stage(data, mode=mode, device=dev)
+    plain = engine.encode(st, pack_method=pack_method)
+    plain_rows = engine.decode(plain)
+    blob = api.compress(data, mode=mode, device=dev, pack_method=pack_method)
+    torch.cuda.synchronize(dev)
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: syncs.append(a))
+    _build.LAUNCHES.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            metrics.tracing() as tr:
+        enc = engine.encode(st, pack_method=pack_method)
+        rows = engine.decode(enc)
+        traced = api.compress(data, mode=mode, device=dev,
+                              pack_method=pack_method)
+        out = api.decompress(traced, device=dev)
+    monkeypatch.undo()
+    torch.cuda.synchronize(dev)
+    assert not syncs
+    names = [e.name for e in prof.events() if e.name.startswith("mhc.")]
+    launches = collections.Counter(n[len("mhc.launch."):] for n in names
+                                   if n.startswith("mhc.launch."))
+    assert launches == _build.LAUNCHES
+    assert {"mhc.wait.bits", "mhc.wait.d2h", "mhc.engine.plan",
+            "mhc.engine.decode_plan", "mhc.engine.upload"} <= set(names)
+    # every launch inside an engine or an api span of the same call
+    for s in tr.spans:
+        if s.name.startswith("mhc.launch."):
+            assert s.parent is not None
+    assert traced == blob and out == data
+    assert torch.equal(enc.payload, plain.payload)
+    assert torch.equal(rows, plain_rows)

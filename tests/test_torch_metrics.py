@@ -6,6 +6,8 @@ call and which leave the bytes unchanged."""
 
 import json
 import os
+import sys
+import threading
 
 import pytest
 import torch
@@ -17,22 +19,91 @@ from mhc_tpu_torch.utils import metrics
 from tests.corpus import mixed_binary
 
 
-@pytest.mark.parametrize("sync", ["tensor", "list", "device"])
-def test_trace_phases(sync):
-    tr = metrics.Trace()
-    x = torch.ones((128, 128))
-    syncs = {"tensor": lambda y: y, "list": lambda y: [y, x],
-             "device": lambda y: torch.device("cpu")}[sync]
-    with tr.phase("matmul", nbytes=128 * 128 * 4, sync=syncs(x)):
-        y = x @ x
-    with tr.phase("matmul", nbytes=128 * 128 * 4, sync=syncs(y)):
-        y = y @ x
+def _nested_call(nbytes: int):
+    """One top-level api span with two phases, the second holding an
+    engine span and a launch inside it."""
+    with metrics.span("mhc.api.compress", nbytes):
+        with metrics.span("mhc.api.blockify", nbytes):
+            pass
+        with metrics.span("mhc.api.pack", nbytes):
+            with metrics.span("mhc.engine.encode", nbytes):
+                with metrics.span("mhc.launch.pack_units"):
+                    torch.ones((64, 64)) @ torch.ones((64, 64))
+
+
+def _check_spans(tr, calls: int, nbytes: int):
+    names = ["mhc.api.compress", "mhc.api.blockify", "mhc.api.pack",
+             "mhc.engine.encode", "mhc.launch.pack_units"]
+    assert [s.name for s in tr.spans] == names * calls
+    for c in range(calls):
+        i = 5 * c
+        one = tr.spans[i: i + 5]
+        assert [s.parent for s in one] == [None, i, i, i + 2, i + 3]
+        assert {s.call for s in one} == {c}
+        for s in one:
+            assert s.t1_ns >= s.t0_ns
+            if s.parent is not None:
+                p = tr.spans[s.parent]
+                assert p.t0_ns <= s.t0_ns <= s.t1_ns <= p.t1_ns
     rep = tr.report()
-    assert rep["matmul"]["calls"] == 2
-    assert rep["matmul"]["bytes"] == 2 * 128 * 128 * 4
-    assert rep["matmul"]["seconds"] > 0
-    assert set(rep["matmul"]) == {"seconds", "bytes", "GBps", "calls"}
+    # the api's phases alone: the top-level span, the engine's and the
+    # launch's are no phase
+    assert set(rep) == {"blockify", "pack"}
+    assert rep["pack"]["calls"] == calls
+    assert rep["pack"]["bytes"] == calls * nbytes
+    assert rep["pack"]["seconds"] > 0
+    assert set(rep["pack"]) == {"seconds", "bytes", "GBps", "calls"}
     assert json.loads(tr.dumps()) == rep
+    assert tr.report(omit=("pack",)).keys() == {"blockify"}
+
+
+@pytest.mark.parametrize("case", ["nesting", "call_ids", "threads"])
+def test_trace_phases(case):
+    """The span recorder: parents and nesting; one call id for every
+    span under a top-level span, a new one for the next; and two threads
+    tracing at once, each trace holding its own spans alone."""
+    if case == "nesting":
+        with metrics.tracing() as tr:
+            _nested_call(4096)
+        _check_spans(tr, 1, 4096)
+        # no trace active and no profiler: nothing is recorded
+        _nested_call(4096)
+        assert len(tr.spans) == 5
+    elif case == "call_ids":
+        with metrics.tracing() as tr:
+            for _ in range(3):
+                _nested_call(100)
+        _check_spans(tr, 3, 100)
+    else:
+        barrier = threading.Barrier(2, timeout=30)
+        traces, errors = {}, []
+
+        def work(name):
+            try:
+                with metrics.tracing() as tr:
+                    for _ in range(4):
+                        barrier.wait()
+                        _nested_call(len(name))
+                        barrier.wait()
+                traces[name] = tr
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        # four calls on each side, entered and left in step
+        threads = [threading.Thread(target=work, args=(name,))
+                   for name in ("a", "bb")]
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            sys.setswitchinterval(old)
+        assert not errors and not any(t.is_alive() for t in threads)
+        _check_spans(traces["a"], 4, 1)
+        _check_spans(traces["bb"], 4, 2)
 
 
 @pytest.mark.parametrize("args", [
