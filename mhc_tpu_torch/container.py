@@ -42,6 +42,7 @@ skipped entirely.
 
 from __future__ import annotations
 
+import collections
 import struct
 import zlib
 from dataclasses import dataclass
@@ -92,6 +93,17 @@ def stream_byte_lens(bit_lengths: np.ndarray, mode: int) -> np.ndarray:
     return (bits + 7) // 8
 
 INDEX_GROUP = 512  # units per index group (each group: own base + nbits)
+# the grouped index is self-describing (group size in-stream), so the
+# writer searches several group sizes — unit lengths cluster by content
+# region at region-dependent scales (round 5: the 64-unit order-0 mixed
+# corpus wants small groups)
+INDEX_GROUPS = (32, 64, 128, INDEX_GROUP)
+
+# Container builds by writer since the last `BUILDS.clear()`: "native",
+# the host library's (utils/container_writer.cpp), or "numpy", where the
+# library does not load or the format cannot hold the input (the numpy
+# writer then raises). No metric reads it; tests do.
+BUILDS: collections.Counter = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +112,9 @@ INDEX_GROUP = 512  # units per index group (each group: own base + nbits)
 # coding them with their own canonical Huffman code (lengths-only header)
 # recovers ~25-40 KB per 100 MB container — the margin that keeps the
 # block-parallel format under the reference oracle's size. Decode is
-# native (utils/native.py mhc_entropy_decode) with a python fallback.
+# native (utils/native.py mhc_entropy_decode) with a python fallback;
+# encode is the host library's writer (utils/container_writer.cpp, via
+# build_container) with this numpy code as its fallback.
 # ---------------------------------------------------------------------------
 
 def entropy_encode(symbols: np.ndarray, alphabet: int):
@@ -370,6 +384,44 @@ def unpack_index(raw: bytes, off: int, n_units: int):
     return base + resid, off + nbytes
 
 
+def _metadata_native(mode: int, lengths: np.ndarray, idx_lens):
+    """(tables, index or None, flags) from the host library, which sizes
+    every form and writes only the chosen one; None where it cannot."""
+    from .utils import native
+    tables = native.write_tables(mode == MODE_MARKOV, lengths)
+    if tables is None:
+        return None
+    flags = FLAG_PACKED_TABLES if tables[1] else 0
+    if idx_lens is None:
+        return tables[0], None, flags
+    index = native.write_index(idx_lens, INDEX_GROUPS)
+    if index is None:
+        return None
+    form_flags = (0, FLAG_ENTROPY_INDEX,
+                  *(FLAG_GROUPED_INDEX,) * len(INDEX_GROUPS))
+    return tables[0], index[0], flags | form_flags[index[1]]
+
+
+def _metadata_numpy(mode: int, lengths: np.ndarray, idx_lens):
+    """_metadata_native's result in numpy: every form written in full,
+    the first shortest index kept, the packed tables where strictly
+    shorter."""
+    index, flags = None, 0
+    if idx_lens is not None:
+        variants = [(pack_index(idx_lens), 0),
+                    (pack_index_entropy(idx_lens), FLAG_ENTROPY_INDEX)]
+        variants += [(pack_index_grouped(idx_lens, group=g),
+                      FLAG_GROUPED_INDEX) for g in INDEX_GROUPS]
+        index, flags = min(variants, key=lambda v: len(v[0]))
+    tables = serialize_tables(mode, lengths)
+    if mode == MODE_MARKOV:
+        packed_tables = serialize_tables_packed(lengths)
+        if len(packed_tables) < len(tables):
+            tables = packed_tables
+            flags |= FLAG_PACKED_TABLES
+    return tables, index, flags
+
+
 def build_container(mode: int, orig_len: int, block_size: int,
                     lengths: np.ndarray, bit_lengths: np.ndarray,
                     payload, crc: int | None,
@@ -380,6 +432,7 @@ def build_container(mode: int, orig_len: int, block_size: int,
     once, here)."""
     flags = FLAG_CRC32 if crc is not None else 0
     aligned = aligned_payload(mode)
+    idx_lens = None
     if decode_unit is not None and decode_unit != block_size:
         # FLAG_RAW_UNITS: the encoders substitute literal streams for
         # incompressible units (engine.compact: K10+K8); readers
@@ -393,17 +446,6 @@ def build_container(mode: int, orig_len: int, block_size: int,
         n_blocks = (orig_len + block_size - 1) // block_size
         bits = np.asarray(bit_lengths, np.int64)
         idx_lens = (bits + 31) // 32 if aligned else (bits + 7) // 8
-        # the grouped form is self-describing (group size in-stream), so
-        # the writer searches several group sizes — unit lengths cluster
-        # by content region at region-dependent scales (round 5: the
-        # 64-unit order-0 mixed corpus wants small groups)
-        variants = [(pack_index(idx_lens), 0),
-                    (pack_index_entropy(idx_lens), FLAG_ENTROPY_INDEX)]
-        variants += [(pack_index_grouped(idx_lens, group=g),
-                      FLAG_GROUPED_INDEX)
-                     for g in (32, 64, 128, INDEX_GROUP)]
-        index, extra = min(variants, key=lambda v: len(v[0]))
-        flags |= extra
     else:
         # legacy whole-block layout keeps exact bit lengths in the index;
         # the payload alignment (if any) is recorded in flag bit 6
@@ -411,19 +453,22 @@ def build_container(mode: int, orig_len: int, block_size: int,
             flags |= FLAG_ALIGNED_PAYLOAD
         du_log2 = 0
         n_blocks = len(bit_lengths)
+    writer = "native"
+    metadata = _metadata_native(mode, lengths, idx_lens)
+    if metadata is None:
+        writer = "numpy"
+        metadata = _metadata_numpy(mode, lengths, idx_lens)
+    tables, index, extra = metadata
+    flags |= extra
+    if index is None:
         index = np.asarray(bit_lengths, dtype="<u4").tobytes()
-    tables = serialize_tables(mode, lengths)
-    if mode == MODE_MARKOV:
-        packed_tables = serialize_tables_packed(lengths)
-        if len(packed_tables) < len(tables):
-            tables = packed_tables
-            flags |= FLAG_PACKED_TABLES
     head = _HEADER.pack(MAGIC, VERSION, mode, flags, du_log2,
                         orig_len, block_size, n_blocks)
     pieces = payload if isinstance(payload, list) else [payload]
     parts = [head, tables, index, *pieces]
     if crc is not None:
         parts.append(struct.pack("<I", crc & 0xFFFFFFFF))
+    BUILDS[writer] += 1
     return b"".join(parts)
 
 

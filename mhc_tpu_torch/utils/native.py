@@ -2,18 +2,20 @@
 
 The port's own binding to the C++ library that `mhc_tpu` also uses: the
 deterministic Huffman length builder and the container's metadata
-decoders, which keep a numpy fallback, so the codec also works where no
-C++ compiler is installed; and the threaded host unit codec of the
-hybrid executor (`join_rows` to `decode_units`), which has none and
-raises without the library: a caller that asks for host threads gets
-them or an error.
+decoders and writer, which keep a numpy fallback, so the codec also
+works where no C++ compiler is installed; and the threaded host unit
+codec of the hybrid executor (`join_rows` to `decode_units`), which has
+none and raises without the library: a caller that asks for host
+threads gets them or an error.
 
-The port compiles `native/mhc_host.cpp` and `native/mhc_codec.cpp` with
-the flags of `native/Makefile` into its own library under
-`build/mhc_tpu_torch/`, and never writes into `native/`. The build goes
-to a per-process temporary file that `os.replace` puts in place, so a
-loader in another process sees either no library or a whole one. It is
-rebuilt when it is older than either source.
+The port compiles `native/mhc_host.cpp`, `native/mhc_codec.cpp` and its
+own `utils/container_writer.cpp` (the container writer's table section
+and unit index: `write_tables`, `write_index`) with the flags of
+`native/Makefile` into its own library under `build/mhc_tpu_torch/`,
+and never writes into `native/`. The build goes to a per-process
+temporary file that `os.replace` puts in place, so a loader in another
+process sees either no library or a whole one. It is rebuilt when it is
+older than any of its sources.
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE = os.path.join(_REPO, "native")
-SOURCES = tuple(os.path.join(_NATIVE, f)
-                for f in ("mhc_host.cpp", "mhc_codec.cpp"))
+SOURCES = (*(os.path.join(_NATIVE, f)
+              for f in ("mhc_host.cpp", "mhc_codec.cpp")),
+           os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "container_writer.cpp"))
 # native/Makefile's CXXFLAGS and its -shared
 CXXFLAGS = ["-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread",
             "-shared"]
@@ -44,7 +48,7 @@ _tried = False
 
 def build(build_dir: str = BUILD_DIR) -> str:
     """Compile the host library into `build_dir` unless it is there and
-    newer than both sources; returns its path. Raises RuntimeError with
+    newer than every source; returns its path. Raises RuntimeError with
     the compiler's output when the build fails."""
     so = os.path.join(build_dir, LIB_NAME)
     if (os.path.exists(so) and os.path.getmtime(so)
@@ -105,6 +109,13 @@ def load(build_dir: str = BUILD_DIR):
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     lib.mhc_entropy_decode.restype = ctypes.c_int64
+    lib.mhc_write_tables.argtypes = [
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.mhc_write_tables.restype = ctypes.c_int64
+    lib.mhc_write_index.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.mhc_write_index.restype = ctypes.c_int64
     lib.mhc_codec_version.restype = ctypes.c_int
     lib.mhc_version.restype = ctypes.c_int
     if (lib.mhc_version() == _HOST_VERSION
@@ -215,6 +226,41 @@ def _entropy_decode_py(src, lens, n_out, out):
         nbits -= ln
         bits_used += ln
     return out, (bits_used + 7) // 8
+
+
+def write_tables(markov: bool, lengths: np.ndarray):
+    """The container's table section (utils/container_writer.cpp): returns
+    (bytes, packed), `packed` where the Markov lengths are entropy-coded;
+    None without the library, or where the lengths are not uint8 of the
+    mode's shape with each in 0..15."""
+    lib = _load()
+    lens = np.ascontiguousarray(lengths)
+    if (lib is None or lens.dtype != np.uint8
+            or lens.size != (65536 if markov else 256)):
+        return None
+    out = np.empty(32 + 128 * 256 + 8, np.uint8)
+    packed = ctypes.c_int32()
+    n = lib.mhc_write_tables(1 if markov else 0, lens.ctypes.data,
+                             out.ctypes.data, ctypes.byref(packed))
+    return None if n < 0 else (out[:n].tobytes(), bool(packed.value))
+
+
+def write_index(byte_lens: np.ndarray, groups: tuple):
+    """The sub-stream unit index (utils/container_writer.cpp) in the
+    first shortest of its forms: returns (bytes, form), form 0 the flat
+    packed index, 1 the entropy-coded one, 2 + i the grouped index at
+    `groups[i]`; None without the library or where the format cannot
+    hold a length."""
+    lib = _load()
+    if lib is None:
+        return None
+    lens = np.ascontiguousarray(byte_lens, dtype=np.int64)
+    g = np.asarray(groups, np.int64)
+    out = np.empty(3 + 8 * lens.size + 8, np.uint8)
+    form = ctypes.c_int32()
+    n = lib.mhc_write_index(lens.ctypes.data, lens.size, g.ctypes.data,
+                            g.size, out.ctypes.data, ctypes.byref(form))
+    return None if n < 0 else (out[:n].tobytes(), form.value)
 
 
 def split_rows(payload, lens: np.ndarray, stride: int) -> np.ndarray:

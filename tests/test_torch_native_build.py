@@ -1,10 +1,11 @@
 """The port's host library builds into its own directory, atomically.
 
-`mhc_tpu_torch.utils.native.build` compiles `native/*.cpp` into a build
-directory by a per-process temporary file and `os.replace`: loaders that
-start together on an empty directory all get a whole library, nothing
-is written under `native/`, and a source newer than the library
-triggers one rebuild.
+`mhc_tpu_torch.utils.native.build` compiles `native/*.cpp` and the
+port's `utils/container_writer.cpp` into a build directory by a
+per-process temporary file and `os.replace`: loaders that start
+together on an empty directory all get a whole library, nothing is
+written under `native/`, and a source newer than the library triggers
+one rebuild.
 """
 
 import json
@@ -64,7 +65,7 @@ def test_a_newer_source_triggers_one_rebuild(tmp_path, monkeypatch):
 
     monkeypatch.setattr(native.subprocess, "run", counting_run)
     assert native.build(build_dir) == so and calls == []    # fresh
-    os.utime(so, (0, 0))          # both sources are now newer
+    os.utime(so, (0, 0))          # every source is now newer
     old_inode = os.stat(so).st_ino
     assert native.build(build_dir) == so
     assert calls == ["g++"]

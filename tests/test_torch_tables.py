@@ -108,3 +108,39 @@ def test_entropy_decode_fallback_matches_native():
     np.testing.assert_array_equal(got, syms)
     np.testing.assert_array_equal(ref, syms)
     assert used == ref_used
+
+
+def _native_streams(section):
+    """The host library's entropy-coded streams of a packed table
+    section or an entropy index: [(symbols, code lengths, stream)]."""
+    rng = np.random.default_rng(6)
+    if section == "tables":
+        lengths = JAX_MARKOV.lengths_from_counts(_counts(6)).astype(np.uint8)
+        raw, packed = native.write_tables(True, lengths)
+        assert packed
+        nib = lengths[(lengths > 0).any(axis=1)].reshape(-1)
+        return [(nib, container.unpack_nibbles(raw[32:40], (16,)),
+                 raw[40:])]
+    resid = 300 * rng.integers(0, 2, 5000) + rng.integers(0, 3, 5000)
+    raw, form = native.write_index(40 + resid, container.INDEX_GROUPS)
+    assert form == 1 and raw[2] == 1    # entropy-coded, high bytes too
+    streams, off = [], 3
+    for syms in (resid & 255, resid >> 8):
+        lens = container.unpack_nibbles(raw[off:off + 128], (256,))
+        nb = int.from_bytes(raw[off + 128:off + 132], "little")
+        streams.append((syms, lens, raw[off + 132:off + 132 + nb]))
+        off += 132 + nb
+    assert off == len(raw)
+    return streams
+
+
+@pytest.mark.parametrize("section", ["tables", "index"])
+def test_native_entropy_encode_round_trips(section):
+    for syms, lens, coded in _native_streams(section):
+        got, used = native.entropy_decode(coded, lens, syms.size)
+        py, py_used = native._entropy_decode_py(
+            np.frombuffer(coded, np.uint8), lens, syms.size,
+            np.empty(syms.size, np.uint8))
+        np.testing.assert_array_equal(got, syms)
+        np.testing.assert_array_equal(py, syms)
+        assert used == py_used == len(coded)
