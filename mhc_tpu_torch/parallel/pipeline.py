@@ -31,6 +31,13 @@ stays bounded; pinned copies on a side stream), the all-reduce hooked
 in before the table build. Collective tensors live on the rank's card
 under NCCL and on the CPU under gloo (CPU worlds, and ranks that share
 one card).
+
+A share already on its card (`engine.stage`) takes the same steps
+without the host's chunks: `encode_staged` sums the share's counts over
+the ranks and encodes it with the tables of the sums, the result left
+on the card, where `engine.decode` decodes it; `gather_container` and
+`gather_bytes` are the ordered gather of every rank's result into the
+corpus's container or bytes.
 """
 
 from __future__ import annotations
@@ -41,9 +48,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import api, container
+from .. import api, container, engine
 from ..models.entropy import MARKOV, ORDER0, get_model
 from ..ops.kernels import decode_cuda, encode_cuda
+from ..utils.metrics import span
 from .mesh import Mesh, make_mesh, pad_to_multiple
 
 
@@ -190,3 +198,54 @@ def decompress_sharded(blob: bytes, mesh: Mesh | None = None,
     if verify:
         container.verify_crc(data, meta)
     return data
+
+
+def encode_staged(st: engine.Staged,
+                  mesh: Mesh | None = None) -> engine.EncodeResult:
+    """The two-pass sharded encode of this rank's share, staged on its
+    device: the share's counts (K1 / K2) summed over the ranks in int64,
+    the tables built alike on every rank from the sums (on a card the
+    fused build), then `engine.encode` of the share with them. The
+    result, this rank's, stays on the device. `mesh` None:
+    `make_mesh(st.units.device)`."""
+    dev = st.units.device
+    mesh = mesh or make_mesh(dev)
+    if mesh.device != dev:
+        raise ValueError(f"a share staged on {dev} for a rank on "
+                         f"{mesh.device}")
+    model = get_model(st.mode)
+    with span("mhc.parallel.tables", st.orig_len):
+        counts = _all_reduce_sum(
+            mesh, model.histogram(st.units, st.n_valid).long())
+        lengths, tables = model.tables_for(counts, dev)
+    return engine.encode(st, lengths=lengths, tables=tables)
+
+
+def gather_container(enc: engine.EncodeResult, data_crc: int | None,
+                     mesh: Mesh | None = None) -> bytes:
+    """The corpus's container from every rank's `encode_staged` result,
+    gathered in rank order: the bit lengths and the payloads, under the
+    header of the shared lengths. Every share but the last ends on a
+    decode unit; `data_crc` is the crc32 of the whole corpus (None: no
+    trailer)."""
+    mesh = mesh or make_mesh(enc.payload.device)
+    sizes = [int(s) for s in _all_gather(
+        mesh, torch.tensor([enc.orig_len], dtype=torch.int64))]
+    if any(n % enc.decode_unit for n in sizes[:-1]):
+        raise ValueError(f"shares of {sizes} B: every share but the last "
+                         f"must end on a decode unit of {enc.decode_unit}")
+    bits = np.frombuffer(_gather_bytes(
+        mesh, np.ascontiguousarray(enc.bit_lens, np.int64).tobytes()),
+        np.int64)
+    return container.build_container(
+        get_model(enc.mode).mode, sum(sizes), enc.block_size, enc.lengths,
+        bits, _gather_bytes(mesh, engine.fetch_payload(enc)), data_crc,
+        decode_unit=enc.decode_unit)
+
+
+def gather_bytes(enc: engine.EncodeResult, rows: torch.Tensor,
+                 mesh: Mesh | None = None) -> bytes:
+    """The corpus's bytes from every rank's decoded rows
+    (`engine.decode` of its `encode_staged` result), in rank order."""
+    mesh = mesh or make_mesh(rows.device)
+    return _gather_bytes(mesh, engine.fetch_bytes(enc, rows))

@@ -503,6 +503,21 @@ def test_sharded_world_of_one_on_the_card(dev, mode):
     assert pipeline.decompress_sharded(blob, device=dev) == data
 
 
+@pytest.mark.parametrize("mode", ["markov", "huffman"])
+def test_staged_world_of_one_on_the_card(dev, mode):
+    """`encode_staged` of a share staged on the card, in a world of one:
+    the engine's payload, and through the gathers `api.compress`'s
+    container and the input back."""
+    data = _data(300_001, 7)
+    st = engine.stage(data, mode=mode, device=dev)
+    enc = pipeline.encode_staged(st)
+    assert enc.payload.device == st.units.device
+    assert torch.equal(enc.payload, engine.encode(st).payload)
+    assert (pipeline.gather_container(enc, zlib.crc32(data) & 0xFFFFFFFF)
+            == mhc_tpu_torch.compress(data, mode=mode, device="cpu"))
+    assert pipeline.gather_bytes(enc, engine.decode(enc)) == data
+
+
 # ---------------------------------------------------------------------------
 # K13, K10+K8, K9/K12 and K14: the engine's stage kernels (csrc/tables.cu,
 # csrc/stages.cu)
