@@ -911,7 +911,7 @@ def stage_checks(torch, rows: dict, st, lengths, inputs: str) -> None:
     if not torch.equal(enc.payload, payload):
         raise AssertionError(f"{inputs}: engine.encode's payload is not "
                              "compact_units'")
-    w, n_dec, raw, td, lit_rows = engine._decode_inputs(enc)
+    w, n_dec, _, td, lit_rows = engine._decode_inputs(enc)
     expand_check(torch, rows, enc.payload,
                  np.concatenate([[0], np.cumsum((enc.bit_lens + 31) // 32)]),
                  w.shape[1], inputs)

@@ -38,6 +38,11 @@ to the container's byte-aligned order-0 layout on the host.
 `assemble_container()` turns an EncodeResult into the container bytes
 that `mhc_tpu.api.compress` writes for the same input.
 
+The host plans the units once each way, in one pass of the host library
+(`utils/unit_plan.cpp`) that writes the plan into the staging buffer of
+its one upload; the numpy plan runs where the library does not load
+(`PLANS` counts each route).
+
 Each host step is a span (`utils.metrics.span`; no span synchronises):
 `mhc.engine.encode` around the encode, and inside it `tables` (the
 table build, the lengths' fetch started), `pack`, `mhc.wait.bits` (the
@@ -50,6 +55,9 @@ inside it `decode_plan` (the units' checks, lengths and literal mask),
 
 from __future__ import annotations
 
+import collections
+import math
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,6 +69,7 @@ from .models.entropy import get_model
 from .ops import bitpack
 from .ops.huffman import MAX_CODE_LEN
 from .ops.kernels import decode_cuda, encode_cuda, stages_cuda
+from .utils import native
 from .utils.metrics import span
 
 # the reference's `pack_method` values the port carries
@@ -69,6 +78,15 @@ _REJECTED = {
     "merge": "the XLA merge packer, on ROADMAP.md's \"Do not port\" list",
     "scatter": "the XLA scatter packer, on ROADMAP.md's \"Do not port\" "
                "list"}
+
+# Unit plans by route since the last `PLANS.clear()`, one an encode and
+# one a decode: "native", the host library's one pass
+# (utils/unit_plan.cpp), or "numpy", where the library does not load. No
+# metric reads it; tests do.
+PLANS: collections.Counter = collections.Counter()
+
+# each thread's staging buffer for the plans' one upload (`_staging`)
+_host = threading.local()
 
 
 @dataclass
@@ -175,15 +193,17 @@ def encode(st: Staged, lengths=None, pack_method: str | None = None,
                     encode_cuda.lookup_cl(st.units, st.n_valid, *tab))
                 padded = stages_cuda.bubbles_to_payload(*bubbles)
             with span("mhc.wait.bits"):
-                bit_lens = bubbles[3].cpu().numpy().astype(np.int64)
+                bits_host = bubbles[3].cpu().numpy()
             # a copy of the streams, so the result does not hold the
             # padding
             with span("mhc.engine.plan"):
-                payload = padded[: int(((bit_lens + 31) // 32).sum())].clone()
+                bit_lens, byte_lens, total, _ = _encode_plan(
+                    bits_host, st, aligned)
+                payload = padded[:total].clone()
         else:
             with span("mhc.engine.pack"):
                 packed = _pack(st, tab, pack_method)
-            payload, bit_lens = compact(st, *packed, aligned)
+            payload, bit_lens, byte_lens = compact(st, *packed, aligned)
         with span("mhc.engine.plan"):
             return EncodeResult(
                 mode=st.mode, block_size=st.block_size,
@@ -191,33 +211,60 @@ def encode(st: Staged, lengths=None, pack_method: str | None = None,
                 n_units=st.n_units,
                 # the bits fetch above synchronised the stream, copy
                 # included
-                lengths=lengths_host.numpy(),
-                byte_lens=container.stream_byte_lens(bit_lens, model.mode),
+                lengths=lengths_host.numpy(), byte_lens=byte_lens,
                 bit_lens=bit_lens, payload=payload, aligned=aligned)
 
 
 def compact(st: Staged, words: torch.Tensor, bits: torch.Tensor,
             aligned: bool):
     """The packed rows of `st` -> (dense word-aligned payload, host int64
-    bit lengths): the bits fetched (the encode's one sync), the literal
-    rule applied to them on the host where the units are substreams of
-    a block (`bitpack.literal_unit_mask`: a literal's bits are
-    n_valid * 8), the word offsets and literal flags uploaded in one
-    copy, then one launch of K10+K8 (`stages_cuda.compact_units`)."""
+    bit lengths, host int64 container-layout bytes): the bits fetched
+    (the encode's one sync), the unit plan made from them on the host
+    (`_encode_plan`: the literal rule where the units are substreams of
+    a block, a literal's bits n_valid * 8), its word offsets and literal
+    flags uploaded in one copy, then one launch of K10+K8
+    (`stages_cuda.compact_units`)."""
     with span("mhc.wait.bits"):
-        bits_host = bits.cpu().numpy().astype(np.int64)
+        bits_host = bits.cpu().numpy()
     with span("mhc.engine.plan"):
-        nv = host_n_valid(st.orig_len, st.decode_unit, st.n_units)
-        raw = (bitpack.literal_unit_mask(bits_host, nv, aligned)
-               if st.decode_unit != st.block_size
-               else np.zeros(st.n_units, bool))
-        bit_lens = np.where(raw, nv * 8, bits_host)
-        bounds = _bounds((bit_lens + 31) // 32)
-    offsets, literal = upload(words.device, bounds, raw)
+        bit_lens, byte_lens, total, staged = _encode_plan(bits_host, st,
+                                                          aligned)
+    offsets, literal = upload_staged(words.device, *staged)
     with span("mhc.engine.compact"):
         payload = stages_cuda.compact_units(
-            words, st.units, st.n_valid, offsets, literal, int(bounds[-1]))
-    return payload, bit_lens
+            words, st.units, st.n_valid, offsets, literal, total)
+    return payload, bit_lens, byte_lens
+
+
+def _encode_plan(bits: np.ndarray, st: Staged, aligned: bool):
+    """The encode's unit plan from the (R,) int32 coded bit counts of
+    `st`'s units: (bit lengths, container-layout bytes, total words,
+    staged upload), the two length arrays fresh (R,) int64 and the upload
+    the (R + 1,) int64 word offsets with the total last and the (R,)
+    uint8 literal flags, in this thread's staging buffer. One native pass
+    (`native.plan_encode`), or numpy where the library does not load;
+    `PLANS` counts each."""
+    R = len(bits)
+    literal = st.decode_unit != st.block_size
+    staged = _staging((np.int64, (R + 1,)), (np.uint8, (R,)))
+    bounds, flags = (v for _, v in staged[1])
+    bit_lens, byte_lens = np.empty(R, np.int64), np.empty(R, np.int64)
+    total = native.plan_encode(bits, st.orig_len, st.decode_unit, literal,
+                               aligned, bit_lens, byte_lens, bounds, flags)
+    route = "native" if total is not None else "numpy"
+    if total is None:
+        bits = np.asarray(bits, np.int64)
+        nv = host_n_valid(st.orig_len, st.decode_unit, R)
+        raw = (bitpack.literal_unit_mask(bits, nv, aligned) if literal
+               else np.zeros(R, bool))
+        bit_lens[:] = np.where(raw, nv * 8, bits)
+        byte_lens[:] = container.stream_byte_lens(
+            bit_lens, get_model(st.mode).mode)
+        bounds[:] = _bounds((bit_lens + 31) // 32)
+        flags[:] = raw
+        total = int(bounds[-1])
+    PLANS[route] += 1
+    return bit_lens, byte_lens, total, staged
 
 
 def _start_fetch(lengths) -> torch.Tensor:
@@ -261,21 +308,58 @@ def _bounds(lens: np.ndarray) -> np.ndarray:
     return out
 
 
+def _staging(*specs) -> tuple:
+    """(buffer, [(offset, view)]): one view of each (dtype, shape) spec
+    at 8-byte aligned offsets of this thread's staging buffer, the bytes
+    between them zeroed; the buffer cut to the last view's end. The
+    buffer is reused by the thread's next plan: `upload_staged`'s
+    pageable copy has read it when it returns."""
+    sizes = [math.prod(shape) * np.dtype(dtype).itemsize
+             for dtype, shape in specs]
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + -(-n // 8) * 8)
+    buf = getattr(_host, "buf", None)
+    if buf is None or buf.size < starts[-1]:
+        buf = _host.buf = np.empty(starts[-1], np.uint8)
+    buf = buf[: starts[-1]]
+    parts = []
+    for (dtype, shape), n, s, e in zip(specs, sizes, starts, starts[1:]):
+        if s + n < e:
+            buf[s + n: e] = 0
+        parts.append((s, buf[s: s + n].view(dtype).reshape(shape)))
+    return buf, parts
+
+
+def upload_staged(dev, buf: np.ndarray, parts: list) -> list:
+    """A staged buffer (`_staging`) -> a tensor on `dev` of each view's
+    dtype (bool as uint8) and shape, through one copy: each tensor a view
+    of the buffer's copy on `dev`."""
+    with span("mhc.engine.upload"):
+        dev_buf = torch.from_numpy(buf).to(dev, copy=True)
+        return [dev_buf[s: s + v.nbytes]
+                .view(torch.from_numpy(v[:0]).dtype).reshape(v.shape)
+                for s, v in parts]
+
+
 def upload(dev, *arrays: np.ndarray) -> list:
     """Host numpy arrays -> tensors of their dtypes on `dev` (bool as
     uint8), through one copy: the arrays' bytes at 8-byte aligned
     offsets of one buffer, each tensor a view of it."""
-    with span("mhc.engine.upload"):
-        arrays = [np.ascontiguousarray(a.view(np.uint8) if a.dtype == bool
-                                       else a) for a in arrays]
-        starts = _bounds([-(-a.nbytes // 8) * 8 for a in arrays])
-        buf = np.zeros(int(starts[-1]), np.uint8)
-        for a, s in zip(arrays, starts):
-            buf[s: s + a.nbytes] = a.reshape(-1).view(np.uint8)
-        dev_buf = torch.from_numpy(buf).to(dev)
-        return [dev_buf[s: s + a.nbytes]
-                .view(torch.from_numpy(a[:0]).dtype).reshape(a.shape)
-                for a, s in zip(arrays, starts)]
+    arrays = [np.ascontiguousarray(a.view(np.uint8) if a.dtype == bool
+                                   else a) for a in arrays]
+    buf, parts = _staging(*((a.dtype, a.shape) for a in arrays))
+    for a, (_, v) in zip(arrays, parts):
+        v[...] = a
+    return upload_staged(dev, buf, parts)
+
+
+def _longest_unit(du: int, aligned: bool) -> int:
+    """The most container-layout bytes the encoder writes for a unit of
+    `du` bytes: its stream row's words_for_block(du) words (aligned), or
+    ceil(du * 15 / 8) bytes."""
+    return (bitpack.words_for_block(du) * 4 if aligned
+            else -(-du * MAX_CODE_LEN // 8))
 
 
 def check_unit_lengths(byte_lens: np.ndarray, du: int, aligned: bool,
@@ -290,8 +374,7 @@ def check_unit_lengths(byte_lens: np.ndarray, du: int, aligned: bool,
     (aligned) or ceil(m / 8); a shorter, or negative, length cannot hold
     the unit, and an `orig_len` that claims more output than the index
     can hold is refused before the output is sized by it."""
-    worst = (bitpack.words_for_block(du) * 4 if aligned
-             else -(-du * MAX_CODE_LEN // 8))
+    worst = _longest_unit(du, aligned)
     if not len(byte_lens):
         return
     lens = np.asarray(byte_lens, np.int64)
@@ -309,51 +392,95 @@ def decode_inputs(enc: EncodeResult):
     n_dec (R,) int32 symbols to decode — 0 for literal units — host
     literal mask (R,) bool, canonical tables). W is at most
     words_for_block(decode_unit) + 1: a longer unit raises ValueError."""
-    return _decode_inputs(enc)[:4]
+    words, n_dec, _, tables, rows = _decode_inputs(enc)
+    raw = np.zeros(enc.n_units, bool)
+    raw[rows.cpu().numpy()] = True
+    return words, n_dec, raw, tables
 
 
 def _decode_inputs(enc: EncodeResult):
-    """decode_inputs, and the (n,) int64 indices of the literal rows on
-    the payload's device (K14's rows). The host plans the units (their
-    lengths checked, their offsets, the literal rule) and uploads the
-    code lengths and the plan in one copy; K13 and K9 follow."""
+    """decode_inputs with the literal count in place of the mask, and the
+    (n,) int64 indices of the literal rows on the payload's device (K14's
+    rows). The host plans the units (`_decode_plan`) and uploads the code
+    lengths and the plan in one copy; K13 and K9 follow."""
     model = get_model(enc.mode)
     dev = enc.payload.device
-    du = enc.decode_unit
-    R = enc.n_units
     with span("mhc.engine.decode_plan"):
-        byte_lens = np.asarray(enc.byte_lens, np.int64)
-        check_unit_lengths(byte_lens, du, enc.aligned, enc.orig_len)
-        if enc.bit_lens is None and not enc.aligned:
-            # parsed unaligned container: byte-granular expansion (K12)
-            lens = byte_lens
-            W = int(-(-byte_lens.max() // 4)) + 1 if R else 1
-        else:
-            # word-aligned payload: an engine result knows each unit's
-            # words from its bits; a parsed aligned container stores
-            # words * 4
-            lens = ((enc.bit_lens + 31) // 32 if enc.bit_lens is not None
-                    else byte_lens // 4).astype(np.int64)
-            W = int(lens.max()) + 1 if R else 1
-        nv = host_n_valid(enc.orig_len, du, R)
-        raw = np.zeros(R, bool)
-        if enc.raw_units and du != enc.block_size:
-            # literal detection follows the CONTAINER layout (the rule the
-            # encoder's substitution applies), never the engine's word
-            # counts: an order-0 unit whose coded bytes fall short of its
-            # length can still round up to the literal's word count
-            raw = bitpack.raw_unit_mask(byte_lens, nv, enc.aligned)
-        plan = (np.asarray(enc.lengths, np.uint8), _bounds(lens),
-                np.where(raw, 0, nv).astype(np.int32),
-                np.flatnonzero(raw).astype(np.int64))
-    lengths, offsets, n_dec, rows = upload(dev, *plan)
+        W, n_raw, staged = _decode_plan(enc)
+    lengths, offsets, n_dec, rows = upload_staged(dev, *staged)
     # a step span around a single launch still holds the stretch before
     # the launch span's own start, which would fall to the caller's span
     with span("mhc.engine.tables"):
         tables = model.tables_from_lengths(lengths, dev)
     with span("mhc.engine.expand"):
         words = stages_cuda.expand_units(enc.payload, offsets, W)
-    return words, n_dec, raw, tables, rows
+    return words, n_dec, n_raw, tables, rows
+
+
+def _decode_plan(enc: EncodeResult):
+    """The decode's unit plan: (W, the literal count, staged upload), W
+    the expansion's row width in words, the upload the code lengths as
+    given (uint8), the (R + 1,) int64 offsets of the unit streams in the
+    payload, n_dec (R,) int32 and the (n,) int64 literal rows, in this
+    thread's staging buffer. Raises ValueError first where a unit's
+    length is corrupt (`check_unit_lengths`). One native pass
+    (`native.plan_decode`), or numpy where the library does not load;
+    `PLANS` counts each."""
+    du = enc.decode_unit
+    R = enc.n_units
+    byte_lens = np.asarray(enc.byte_lens, np.int64)
+    lengths = np.asarray(enc.lengths, np.uint8)
+    # literal detection follows the CONTAINER layout (the rule the
+    # encoder's substitution applies), never the engine's word counts:
+    # an order-0 unit whose coded bytes fall short of its length can
+    # still round up to the literal's word count
+    literal = enc.raw_units and du != enc.block_size
+    buf, parts = _staging((np.uint8, lengths.shape), (np.int64, (R + 1,)),
+                          (np.int32, (R,)), (np.int64, (R,)))
+    lens_v, bounds, n_dec, rows = (v for _, v in parts)
+    got = native.plan_decode(byte_lens, enc.bit_lens, enc.orig_len, du,
+                             enc.aligned, literal,
+                             _longest_unit(du, enc.aligned), bounds, n_dec,
+                             rows)
+    route = "native" if got is not None else "numpy"
+    if got is None:
+        W, raw_rows = _decode_plan_numpy(enc, byte_lens, literal, bounds,
+                                         n_dec)
+        got = W, len(raw_rows)
+        rows[: got[1]] = raw_rows
+    W, n_raw = got
+    PLANS[route] += 1
+    lens_v[...] = lengths
+    # the rows, last, cut to the literals
+    s = parts[-1][0]
+    parts[-1] = (s, rows[:n_raw])
+    return W, n_raw, (buf[: s + 8 * n_raw], parts)
+
+
+def _decode_plan_numpy(enc: EncodeResult, byte_lens: np.ndarray,
+                       literal: bool, bounds: np.ndarray, n_dec: np.ndarray):
+    """`_decode_plan`'s numpy route: the checks, then the offsets and
+    n_dec written into `bounds` and `n_dec`; returns (W, the literal
+    rows)."""
+    du = enc.decode_unit
+    R = enc.n_units
+    check_unit_lengths(byte_lens, du, enc.aligned, enc.orig_len)
+    if enc.bit_lens is None and not enc.aligned:
+        # parsed unaligned container: byte-granular expansion (K12)
+        lens = byte_lens
+        W = int(-(-byte_lens.max() // 4)) + 1 if R else 1
+    else:
+        # word-aligned payload: an engine result knows each unit's words
+        # from its bits; a parsed aligned container stores words * 4
+        lens = ((enc.bit_lens + 31) // 32 if enc.bit_lens is not None
+                else byte_lens // 4).astype(np.int64)
+        W = int(lens.max()) + 1 if R else 1
+    nv = host_n_valid(enc.orig_len, du, R)
+    raw = (bitpack.raw_unit_mask(byte_lens, nv, enc.aligned) if literal
+           else np.zeros(R, bool))
+    bounds[:] = _bounds(lens)
+    n_dec[:] = np.where(raw, 0, nv)
+    return W, np.flatnonzero(raw)
 
 
 def row_width(enc: EncodeResult) -> int:
@@ -373,13 +500,13 @@ def decode(enc: EncodeResult) -> torch.Tensor:
     uint8 rows on the payload's device, zero past each unit's length
     (fetch_bytes trims)."""
     with span("mhc.engine.decode", enc.orig_len):
-        words, n_dec, raw, tables, rows = _decode_inputs(enc)
+        words, n_dec, n_raw, tables, rows = _decode_inputs(enc)
         with span("mhc.engine.rows"):
             out = decode_cuda.decode_units(
                 words, n_dec, tables["lim"], tables["base"],
                 tables["first_code"], tables["sorted_syms"],
                 n_out=row_width(enc), markov=get_model(enc.mode).markov)
-            if raw.any():
+            if n_raw:
                 stages_cuda.literal_rows(out, words, rows)
         return out
 

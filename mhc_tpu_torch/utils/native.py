@@ -3,14 +3,16 @@
 The port's own binding to the C++ library that `mhc_tpu` also uses: the
 deterministic Huffman length builder and the container's metadata
 decoders and writer, which keep a numpy fallback, so the codec also
-works where no C++ compiler is installed; and the threaded host unit
+works where no C++ compiler is installed; the engine's unit plans,
+whose numpy route stays in `engine`; and the threaded host unit
 codec of the hybrid executor (`join_rows` to `decode_units`), which has
 none and raises without the library: a caller that asks for host
 threads gets them or an error.
 
 The port compiles `native/mhc_host.cpp`, `native/mhc_codec.cpp` and its
 own `utils/container_writer.cpp` (the container writer's table section
-and unit index: `write_tables`, `write_index`) with the flags of
+and unit index: `write_tables`, `write_index`) and `utils/unit_plan.cpp`
+(the engine's unit plans: `plan_encode`, `plan_decode`) with the flags of
 `native/Makefile` into its own library under `build/mhc_tpu_torch/`,
 and never writes into `native/`. The build goes to a per-process
 temporary file that `os.replace` puts in place, so a loader in another
@@ -31,8 +33,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 _NATIVE = os.path.join(_REPO, "native")
 SOURCES = (*(os.path.join(_NATIVE, f)
               for f in ("mhc_host.cpp", "mhc_codec.cpp")),
-           os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "container_writer.cpp"))
+           *(os.path.join(os.path.dirname(os.path.abspath(__file__)), f)
+             for f in ("container_writer.cpp", "unit_plan.cpp")))
 # native/Makefile's CXXFLAGS and its -shared
 CXXFLAGS = ["-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread",
             "-shared"]
@@ -116,6 +118,16 @@ def load(build_dir: str = BUILD_DIR):
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p]
     lib.mhc_write_index.restype = ctypes.c_int64
+    lib.mhc_plan_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.mhc_plan_encode.restype = ctypes.c_int64
+    lib.mhc_plan_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.mhc_plan_decode.restype = ctypes.c_int64
     lib.mhc_codec_version.restype = ctypes.c_int
     lib.mhc_version.restype = ctypes.c_int
     if (lib.mhc_version() == _HOST_VERSION
@@ -261,6 +273,67 @@ def write_index(byte_lens: np.ndarray, groups: tuple):
     n = lib.mhc_write_index(lens.ctypes.data, lens.size, g.ctypes.data,
                             g.size, out.ctypes.data, ctypes.byref(form))
     return None if n < 0 else (out[:n].tobytes(), form.value)
+
+
+def _check_out(*arrays) -> None:
+    """Raises ValueError unless each (array, dtype, size) is a writable
+    C-contiguous array of that dtype and size: the plans write into them
+    through bare pointers."""
+    for a, dtype, size in arrays:
+        if (a.dtype != dtype or a.size != size or not a.flags.c_contiguous
+                or not a.flags.writeable):
+            raise ValueError(f"plan output of {a.dtype} x {a.size} where "
+                             f"{np.dtype(dtype)} x {size} is due")
+
+
+def plan_encode(bits: np.ndarray, orig_len: int, du: int, literal: bool,
+                aligned: bool, bit_lens: np.ndarray, byte_lens: np.ndarray,
+                bounds: np.ndarray, flags: np.ndarray):
+    """The encode's unit plan (utils/unit_plan.cpp) of R units from their
+    (R,) int32 coded bit counts, written into `bit_lens`, `byte_lens`
+    ((R,) int64), `bounds` ((R + 1,) int64) and `flags` ((R,) uint8);
+    returns the total words, or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    b = np.ascontiguousarray(bits, np.int32)
+    R = b.size
+    _check_out((bit_lens, np.int64, R), (byte_lens, np.int64, R),
+               (bounds, np.int64, R + 1), (flags, np.uint8, R))
+    return int(lib.mhc_plan_encode(
+        b.ctypes.data, R, orig_len, du, int(literal), int(aligned),
+        bit_lens.ctypes.data, byte_lens.ctypes.data, bounds.ctypes.data,
+        flags.ctypes.data))
+
+
+def plan_decode(byte_lens: np.ndarray, bit_lens, orig_len: int, du: int,
+                aligned: bool, literal: bool, worst: int, bounds: np.ndarray,
+                n_dec: np.ndarray, rows: np.ndarray):
+    """The decode's unit plan (utils/unit_plan.cpp) of R units from their
+    stored bytes (and bit lengths, or None), written into `bounds` ((R +
+    1,) int64), `n_dec` ((R,) int32) and the first entries of `rows` ((R,)
+    int64); returns (the expansion's row width in words, the literal
+    count), or None without the library. Raises ValueError where a unit's
+    stored bytes exceed `worst` or cannot hold its symbols."""
+    lib = _load()
+    if lib is None:
+        return None
+    sl = np.ascontiguousarray(byte_lens, np.int64)
+    R = sl.size
+    bl = None if bit_lens is None else np.ascontiguousarray(bit_lens,
+                                                            np.int64)
+    if bl is not None and bl.size != R:
+        raise ValueError("bit_lens and byte_lens differ in length")
+    _check_out((bounds, np.int64, R + 1), (n_dec, np.int32, R),
+               (rows, np.int64, R))
+    width = ctypes.c_int64()
+    n_raw = lib.mhc_plan_decode(
+        sl.ctypes.data, None if bl is None else bl.ctypes.data, R, orig_len,
+        du, int(aligned), int(literal), worst, bounds.ctypes.data,
+        n_dec.ctypes.data, rows.ctypes.data, ctypes.byref(width))
+    if n_raw < 0:
+        raise ValueError("mhc: corrupt container (unit length)")
+    return width.value, int(n_raw)
 
 
 def split_rows(payload, lens: np.ndarray, stride: int) -> np.ndarray:
