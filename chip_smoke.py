@@ -1150,7 +1150,6 @@ def round_trip(torch, data: bytes, mode: str, dev, path: str,
     turns. Returns (container, launches)."""
     from mhc_tpu_torch import api, engine
     from mhc_tpu_torch.ops import bitpack
-    from mhc_tpu_torch.utils import native
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1176,7 +1175,7 @@ def round_trip(torch, data: bytes, mode: str, dev, path: str,
     emit(path, mode=mode, n_bytes=len(data), n_units=enc.n_units,
          decode_unit=enc.decode_unit, literal_units=raw, launches=launches,
          host_build_launches=host_launches,
-         host_table_builder="native C++" if native.available() else "numpy",
+         host_table_builder="native C++",
          encode_ms=enc_ms["device"], encode_ms_host_build=enc_ms["host"],
          decode_ms=dec_ms, encode_GBps=len(data) / enc_ms["device"] / 1e6,
          decode_GBps=len(data) / dec_ms / 1e6,

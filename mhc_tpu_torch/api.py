@@ -67,18 +67,17 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from . import container
+from . import container, engine
 from .config import resolve_device
+# the unit layout's parameters and check, also public here
+from .container import (DEFAULT_BLOCK_SIZE, DEFAULT_DECODE_UNIT,
+                        DEFAULT_DECODE_UNIT_ORDER0, blockify,
+                        resolve_decode_unit)
 from .models.entropy import get_model
+from .ops import bitpack
 from .ops.huffman import MAX_CODE_LEN
 from .utils.metrics import span, tracing
 
-DEFAULT_BLOCK_SIZE = 64 * 1024
-# Sequential decode length per stream: 8 KB units keep the 100 MB Markov
-# container under the reference oracle's size while giving 8x the
-# parallel streams of 64 KB blocks.
-DEFAULT_DECODE_UNIT = 8192
-DEFAULT_DECODE_UNIT_ORDER0 = 16384
 # Input bytes per chunk of compress / decompress (rounded down to whole
 # decode units). The reference's 16 MB came from TPU VMEM and compile
 # limits. Here the decode kernel runs one thread per unit and the pack
@@ -90,65 +89,8 @@ DEFAULT_DECODE_UNIT_ORDER0 = 16384
 # directions but one, where it was within 4%.
 CHUNK_BYTES = 64 << 20
 # A file larger than a segment is stored as a chain of independent
-# containers: bounds host and device memory, and keeps every context's
-# histogram total within int32 (ops/huffman.py).
+# containers: bounds host and device memory.
 DEFAULT_SEGMENT_SIZE = 1 << 30
-
-
-def blockify(data, block_size: int):
-    """bytes -> ((B, block_size) uint8 zero-padded batch, (B,) int32
-    valid counts)."""
-    if isinstance(data, (bytes, bytearray, memoryview)):
-        flat = np.frombuffer(data, dtype=np.uint8)
-    else:
-        flat = np.asarray(data, dtype=np.uint8).reshape(-1)
-    n = flat.size
-    if n == 0:
-        return np.zeros((0, block_size), np.uint8), np.zeros((0,), np.int32)
-    B = (n + block_size - 1) // block_size
-    padded = np.zeros(B * block_size, dtype=np.uint8)
-    padded[:n] = flat
-    n_valid = np.full(B, block_size, dtype=np.int32)
-    n_valid[-1] = n - (B - 1) * block_size
-    return padded.reshape(B, block_size), n_valid
-
-
-def resolve_decode_unit(block_size: int, decode_unit: int | None,
-                        markov: bool = True) -> int:
-    """The one parameter check of every writer (`compress`, the file and
-    hybrid functions, the sharded pipeline), run before any byte is read
-    or staged; returns the decode unit. `block_size` must be an int and a
-    power of two in [1, 2**32): the header stores it as a u32. The unit
-    (None: the mode's default) is clamped to the block and must be a
-    power of two dividing it; a unit of 1 or 2 bytes must be the whole
-    block: the substreams of a block may be stored as literal words,
-    which such a unit cannot fill (the reference fails there with a
-    TypeError). Anything else raises ValueError."""
-    if not _is_int(block_size) or not 1 <= block_size < 1 << 32 \
-            or block_size & (block_size - 1):
-        raise ValueError(f"block_size {block_size!r} must be a power of "
-                         "two in [1, 2**32)")
-    if decode_unit is not None and not _is_int(decode_unit):
-        raise ValueError(f"decode_unit {decode_unit!r} is not an int")
-    du = decode_unit or (DEFAULT_DECODE_UNIT if markov
-                         else DEFAULT_DECODE_UNIT_ORDER0)
-    du = min(du, block_size)
-    if du <= 0 or block_size % du != 0 or du & (du - 1):
-        raise ValueError(
-            f"decode_unit {du} must be a power of two dividing "
-            f"block_size {block_size}")
-    if du < 4 and du != block_size:
-        raise ValueError(
-            f"decode_unit {du} under block_size {block_size}: a unit of "
-            "fewer than 4 bytes must be the whole block")
-    # the u16 unit index requires a worst-case unit stream < 64 KB
-    if du != block_size and du * MAX_CODE_LEN // 8 >= (1 << 16):
-        raise ValueError(f"decode_unit {du} too large for u16 unit index")
-    return int(du)
-
-
-def _is_int(x) -> bool:
-    return isinstance(x, (int, np.integer)) and not isinstance(x, bool)
 
 
 @contextmanager
@@ -251,7 +193,6 @@ def compress(data: bytes, mode: str = "markov",
     CUDA card; raises without one — pass "cpu" for the plain versions).
     `pack_method` is "fused" (None, K3), "dense" (K5 then K4) or
     "pallas" (K5 then K6); all write the same bytes."""
-    from . import engine
     with _call("compress", len(data)):
         model = get_model(mode)
         du = resolve_decode_unit(block_size, decode_unit, model.markov)
@@ -281,7 +222,6 @@ def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
     and copies its payload back. Returns (host uint8 lengths, (hi - lo,)
     int64 bit lengths, the container-layout payload in pieces, the crc32
     of all of `data` or None)."""
-    from . import engine
     flat = np.frombuffer(data, dtype=np.uint8)
     n = flat.size
     copier = _Copier(dev)
@@ -341,8 +281,6 @@ def encode_range(data: bytes, lo: int, hi: int, model, block_size: int,
 def parsed_chunk(meta, lo: int, hi: int, payload: torch.Tensor):
     """The engine's view of units [lo, hi) of a parsed container, given
     their payload bytes (uint8, on the decoding device) as stored."""
-    from . import engine
-    from .ops import bitpack
     du = meta.decode_unit or meta.block_size
     aligned = bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD)
     return engine.EncodeResult(
@@ -364,7 +302,6 @@ def check_parsed(meta) -> tuple:
     writer of either package emits (not under the block, under 4 bytes,
     or too long for the u16 index: `resolve_decode_unit`'s bounds),
     raise ValueError."""
-    from . import engine
     if meta.block_size == 0:
         raise ValueError("mhc: corrupt container (block size)")
     du = meta.decode_unit or meta.block_size
@@ -413,7 +350,6 @@ def decode_range(blob: bytes, meta, starts: np.ndarray, lo: int, hi: int,
     CHUNK_BYTES: each chunk's payload copied to the device, decoded
     (engine.decode) and copied back, the next chunk's upload beside this
     chunk's kernels."""
-    from . import engine
     du = meta.decode_unit or meta.block_size
     chunks = _chunks(lo, hi, du)
     if not chunks:

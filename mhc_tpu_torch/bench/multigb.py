@@ -52,7 +52,6 @@ import torch
 from .. import api
 from ..config import resolve_device
 from ..ops.kernels import _build
-from ..utils import native
 from ..utils.corpus import make_corpus
 from . import probes
 
@@ -197,8 +196,7 @@ def run(src: str, segment_size: int = api.DEFAULT_SEGMENT_SIZE,
         "peak_device_bytes": {"compress": enc_peak,
                               "decompress": dec_peak},
         "table_builder": ("device (code_tables: K11 + K13, one launch)"
-                          if device.type == "cuda" else
-                          "native C++" if native.available() else "numpy"),
+                          if device.type == "cuda" else "native C++"),
         "encode_s_per_segment": enc_s / n_seg,
         "decode_s_per_segment": dec_s / n_seg,
         "compressed_bytes": stats["compressed_bytes"],

@@ -1,8 +1,9 @@
 """MHTC container format — the durable artifact of the codec.
 
-Counterpart of `mhc_tpu/container.py` (host numpy/struct code, the same
-bytes): the container is the exchange format between the two packages,
-in both directions. The payload is a sequence of independently
+Counterpart of `mhc_tpu/container.py` (the same bytes; here the table
+section and the unit index are written, and their entropy-coded streams
+decoded, by the host library, `utils/native.py`): the container is the
+exchange format between the two packages, in both directions. The payload is a sequence of independently
 decodable, byte-aligned blocks with a per-block bit-length index, so
 decode parallelism is a property of the FORMAT, not of the decoder
 implementation (spec: docs/FORMAT.md).
@@ -42,12 +43,14 @@ skipped entirely.
 
 from __future__ import annotations
 
-import collections
 import struct
 import zlib
 from dataclasses import dataclass
 
 import numpy as np
+
+from .ops.huffman import MAX_CODE_LEN
+from .utils import native
 
 MAGIC = b"MHTC"
 VERSION = 1
@@ -99,61 +102,70 @@ INDEX_GROUP = 512  # units per index group (each group: own base + nbits)
 # corpus wants small groups)
 INDEX_GROUPS = (32, 64, 128, INDEX_GROUP)
 
-# Container builds by writer since the last `BUILDS.clear()`: "native",
-# the host library's (utils/container_writer.cpp), or "numpy", where the
-# library does not load or the format cannot hold the input (the numpy
-# writer then raises). No metric reads it; tests do.
-BUILDS: collections.Counter = collections.Counter()
+DEFAULT_BLOCK_SIZE = 64 * 1024
+# Sequential decode length per stream: 8 KB units keep the 100 MB Markov
+# container under the reference oracle's size while giving 8x the
+# parallel streams of 64 KB blocks.
+DEFAULT_DECODE_UNIT = 8192
+DEFAULT_DECODE_UNIT_ORDER0 = 16384
 
 
-# ---------------------------------------------------------------------------
-# tiny order-0 canonical entropy codec for metadata sections. The table
-# nibbles and index residual bytes are low-entropy (2.5-7 bits/symbol);
-# coding them with their own canonical Huffman code (lengths-only header)
-# recovers ~25-40 KB per 100 MB container — the margin that keeps the
-# block-parallel format under the reference oracle's size. Decode is
-# native (utils/native.py mhc_entropy_decode) with a python fallback;
-# encode is the host library's writer (utils/container_writer.cpp, via
-# build_container) with this numpy code as its fallback.
-# ---------------------------------------------------------------------------
-
-def entropy_encode(symbols: np.ndarray, alphabet: int):
-    """symbols (n,) uint8 < alphabet -> (lengths uint8[alphabet], coded
-    bytes). Canonical order-0 Huffman, MSB-first, max code length 15."""
-    from .ops.canonical import canonical_codes_host
-    from .utils import native
-    syms = np.asarray(symbols, np.uint8)
-    counts = np.bincount(syms, minlength=alphabet).astype(np.int64)
-    full = np.zeros(256, np.int64)
-    full[:alphabet] = counts
-    lengths = native.code_lengths(
-        full[None, :].astype(np.int32), 15)[0]
-    t = canonical_codes_host(lengths.astype(np.int64))
-    codes = t["codes"].astype(np.int64)
-    lens = lengths.astype(np.int64)
-    sl = lens[syms]
-    sc = codes[syms]
-    if syms.size == 0:
-        return lengths[:alphabet].astype(np.uint8), b""
-    offs = np.cumsum(sl) - sl
-    total_bits = int(offs[-1] + sl[-1])
-    W = (total_bits + 31) // 32 + 1
-    words = np.zeros(W, np.int64)
-    w0 = offs >> 5
-    s = offs & 31
-    left = 32 - s - sl
-    part0 = np.where(left >= 0, sc << np.maximum(left, 0),
-                     sc >> np.maximum(-left, 0))
-    part1 = np.where(left < 0, sc << (32 + np.minimum(left, 0)), 0)
-    np.add.at(words, w0, part0 & 0xFFFFFFFF)
-    np.add.at(words, w0 + 1, part1 & 0xFFFFFFFF)
-    raw = (words & 0xFFFFFFFF).astype(">u4").tobytes()
-    return lengths[:alphabet].astype(np.uint8), raw[: (total_bits + 7) // 8]
+def resolve_decode_unit(block_size: int, decode_unit: int | None,
+                        markov: bool = True) -> int:
+    """The one parameter check of every writer (`api.compress`, the file
+    and hybrid functions, the sharded pipeline, `engine.stage`), run
+    before any byte is read or staged; returns the decode unit.
+    `block_size` must be an int and a power of two in [1, 2**32): the
+    header stores it as a u32. The unit (None: the mode's default) is
+    clamped to the block and must be a power of two dividing it; a unit
+    of 1 or 2 bytes must be the whole block: the substreams of a block
+    may be stored as literal words, which such a unit cannot fill (the
+    reference fails there with a TypeError). Anything else raises
+    ValueError."""
+    if not _is_int(block_size) or not 1 <= block_size < 1 << 32 \
+            or block_size & (block_size - 1):
+        raise ValueError(f"block_size {block_size!r} must be a power of "
+                         "two in [1, 2**32)")
+    if decode_unit is not None and not _is_int(decode_unit):
+        raise ValueError(f"decode_unit {decode_unit!r} is not an int")
+    du = decode_unit or (DEFAULT_DECODE_UNIT if markov
+                         else DEFAULT_DECODE_UNIT_ORDER0)
+    du = min(du, block_size)
+    if du <= 0 or block_size % du != 0 or du & (du - 1):
+        raise ValueError(
+            f"decode_unit {du} must be a power of two dividing "
+            f"block_size {block_size}")
+    if du < 4 and du != block_size:
+        raise ValueError(
+            f"decode_unit {du} under block_size {block_size}: a unit of "
+            "fewer than 4 bytes must be the whole block")
+    # the u16 unit index requires a worst-case unit stream < 64 KB
+    if du != block_size and du * MAX_CODE_LEN // 8 >= (1 << 16):
+        raise ValueError(f"decode_unit {du} too large for u16 unit index")
+    return int(du)
 
 
-def entropy_decode(coded: bytes, lengths: np.ndarray, n_out: int):
-    from .utils import native
-    return native.entropy_decode(coded, lengths, n_out)
+def _is_int(x) -> bool:
+    return isinstance(x, (int, np.integer)) and not isinstance(x, bool)
+
+
+def blockify(data, block_size: int):
+    """bytes -> ((B, block_size) uint8 zero-padded batch, (B,) int32
+    valid counts)."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        flat = np.frombuffer(data, dtype=np.uint8)
+    else:
+        flat = np.asarray(data, dtype=np.uint8).reshape(-1)
+    n = flat.size
+    if n == 0:
+        return np.zeros((0, block_size), np.uint8), np.zeros((0,), np.int32)
+    B = (n + block_size - 1) // block_size
+    padded = np.zeros(B * block_size, dtype=np.uint8)
+    padded[:n] = flat
+    n_valid = np.full(B, block_size, dtype=np.int32)
+    n_valid[-1] = n - (B - 1) * block_size
+    return padded.reshape(B, block_size), n_valid
+
 
 _HEADER = struct.Struct("<4sBBBBQII")
 
@@ -174,42 +186,12 @@ class ContainerMeta:
     crc32: int | None
 
 
-def pack_nibbles(lengths: np.ndarray) -> bytes:
-    """(..., 256) uint8 lengths in 0..15 -> (..., 128) bytes."""
-    a = np.asarray(lengths, dtype=np.uint8)
-    assert a.shape[-1] % 2 == 0
-    lo = a[..., 0::2]
-    hi = a[..., 1::2]
-    return ((hi << 4) | lo).tobytes()
-
-
 def unpack_nibbles(raw: bytes, shape) -> np.ndarray:
     b = np.frombuffer(raw, dtype=np.uint8)
     out = np.empty(b.size * 2, dtype=np.uint8)
     out[0::2] = b & 0x0F
     out[1::2] = b >> 4
     return out.reshape(shape)
-
-
-def serialize_tables(mode: int, lengths: np.ndarray) -> bytes:
-    if mode == MODE_ORDER0:
-        return pack_nibbles(lengths.reshape(256))
-    present = (lengths.reshape(256, 256) > 0).any(axis=1)
-    bitmap = np.packbits(present, bitorder="little").tobytes()  # 32 bytes
-    rows = pack_nibbles(lengths.reshape(256, 256)[present])
-    return bitmap + rows
-
-
-def serialize_tables_packed(lengths: np.ndarray) -> bytes:
-    """Markov tables with the 256*npresent code-length nibbles entropy-
-    coded: bitmap(32) + nibble-code lengths (8B, nibble-packed) + coded
-    stream. ~2x smaller than raw nibbles on typical corpora."""
-    rows = lengths.reshape(256, 256)
-    present = (rows > 0).any(axis=1)
-    bitmap = np.packbits(present, bitorder="little").tobytes()
-    nib = rows[present].reshape(-1)
-    code_lens, coded = entropy_encode(nib, 16)
-    return bitmap + pack_nibbles(code_lens) + coded
 
 
 def parse_tables(mode: int, raw: bytes, off: int, packed: bool = False):
@@ -231,8 +213,8 @@ def parse_tables(mode: int, raw: bytes, off: int, packed: bool = False):
         code_lens = unpack_nibbles(raw[off:off + 8], (16,))
         off += 8
         # a view: slicing `raw` would copy the whole container
-        nib, used = entropy_decode(memoryview(raw)[off:], code_lens,
-                                   256 * npresent)
+        nib, used = native.entropy_decode(memoryview(raw)[off:],
+                                          code_lens, 256 * npresent)
         if np.any(nib >= 16):
             raise ValueError("mhc: corrupt packed table section")
         # the decoder reads zeros past the end: a cut stream must read as
@@ -250,26 +232,6 @@ def parse_tables(mode: int, raw: bytes, off: int, packed: bool = False):
     return lengths, off
 
 
-def pack_index_entropy(byte_lens: np.ndarray) -> bytes:
-    """Entropy-coded unit index: u16 base + flags byte, then the residual
-    low bytes (and high bytes when any residual >= 256) each as an
-    entropy-coded stream with a 128 B lengths header."""
-    lens = np.asarray(byte_lens, np.int64)
-    base = int(lens.min()) if lens.size else 0
-    resid = lens - base
-    has_hi = int(resid.max()) >= 256 if lens.size else False
-    parts = [struct.pack("<HB", base, 1 if has_hi else 0)]
-    lo_lens, lo_coded = entropy_encode((resid & 255).astype(np.uint8), 256)
-    parts += [pack_nibbles(lo_lens), struct.pack("<I", len(lo_coded)),
-              lo_coded]
-    if has_hi:
-        hi_lens, hi_coded = entropy_encode((resid >> 8).astype(np.uint8),
-                                           256)
-        parts += [pack_nibbles(hi_lens), struct.pack("<I", len(hi_coded)),
-                  hi_coded]
-    return b"".join(parts)
-
-
 def unpack_index_entropy(raw: bytes, off: int, n_units: int):
     if len(raw) < off + 3:
         raise ValueError("mhc: truncated container (entropy index header)")
@@ -285,7 +247,8 @@ def unpack_index_entropy(raw: bytes, off: int, n_units: int):
         off += 4
         if len(raw) < off + nb:
             raise ValueError("mhc: truncated container (entropy index)")
-        syms, used = entropy_decode(raw[off:off + nb], code_lens, n_units)
+        syms, used = native.entropy_decode(raw[off:off + nb], code_lens,
+                                           n_units)
         if used > nb:
             raise ValueError("mhc: corrupt entropy index")
         return syms.astype(np.int64), off + nb
@@ -298,46 +261,9 @@ def unpack_index_entropy(raw: bytes, off: int, n_units: int):
     return out, off
 
 
-def pack_index(byte_lens: np.ndarray) -> bytes:
-    """Bit-packed unit index: u16 base + u8 nbits + nbits-per-unit
-    residuals (LSB-first). Unit stream lengths cluster tightly, so this
-    typically costs well under half the flat u16 index."""
-    lens = np.asarray(byte_lens, np.int64)
-    if lens.size == 0:
-        return struct.pack("<HB", 0, 0)
-    base = int(lens.min())
-    resid = lens - base
-    span = int(resid.max())
-    nbits = max(span.bit_length(), 0)
-    head = struct.pack("<HB", base, nbits)
-    if nbits == 0:
-        return head
-    bits = ((resid[:, None] >> np.arange(nbits)[None, :]) & 1).astype(np.uint8)
-    return head + np.packbits(bits.reshape(-1), bitorder="little").tobytes()
-
-
-def pack_index_grouped(byte_lens: np.ndarray, group: int = INDEX_GROUP) -> bytes:
-    """Grouped packed index: per-group u16 base + u8 nbits + byte-aligned
-    nbits-per-unit residuals. Unit stream lengths cluster by content
-    region (text vs binary vs noise), so per-group parameters beat one
-    global (base, nbits) pair on mixed corpora by ~2x."""
-    lens = np.asarray(byte_lens, np.int64)
-    parts = [struct.pack("<I", group)]
-    for g in range(0, lens.size, group):
-        gl = lens[g:g + group]
-        base = int(gl.min())
-        resid = gl - base
-        nbits = int(resid.max()).bit_length()
-        parts.append(struct.pack("<HB", base, nbits))
-        if nbits:
-            bits = ((resid[:, None] >> np.arange(nbits)[None, :]) & 1)
-            parts.append(np.packbits(bits.reshape(-1).astype(np.uint8),
-                                     bitorder="little").tobytes())
-    return b"".join(parts)
-
-
 def unpack_index_grouped(raw: bytes, off: int, n_units: int):
-    """Inverse of pack_index_grouped. Returns (byte_lengths int64, off)."""
+    """The grouped index (form 2 + i of `native.write_index`). Returns
+    (byte_lengths int64, off)."""
     if len(raw) < off + 4:
         raise ValueError("mhc: truncated container (grouped index header)")
     (group,) = struct.unpack_from("<I", raw, off)
@@ -367,7 +293,8 @@ def unpack_index_grouped(raw: bytes, off: int, n_units: int):
 
 
 def unpack_index(raw: bytes, off: int, n_units: int):
-    """Inverse of pack_index. Returns (byte_lengths int64, new offset)."""
+    """The flat packed index (form 0 of `native.write_index`). Returns
+    (byte_lengths int64, new offset)."""
     if len(raw) < off + 3:
         raise ValueError("mhc: truncated container (packed index header)")
     base, nbits = struct.unpack_from("<HB", raw, off)
@@ -384,42 +311,25 @@ def unpack_index(raw: bytes, off: int, n_units: int):
     return base + resid, off + nbytes
 
 
-def _metadata_native(mode: int, lengths: np.ndarray, idx_lens):
+# The table nibbles and index residual bytes are low-entropy (2.5-7
+# bits/symbol); coding them with their own canonical order-0 Huffman code
+# (lengths-only header) recovers ~25-40 KB per 100 MB container — the
+# margin that keeps the block-parallel format under the reference oracle's
+# size. The host library writes them (utils/container_writer.cpp, through
+# build_container) and decodes them (`native.entropy_decode`).
+
+def _metadata(mode: int, lengths: np.ndarray, idx_lens):
     """(tables, index or None, flags) from the host library, which sizes
-    every form and writes only the chosen one; None where it cannot."""
-    from .utils import native
-    tables = native.write_tables(mode == MODE_MARKOV, lengths)
-    if tables is None:
-        return None
-    flags = FLAG_PACKED_TABLES if tables[1] else 0
+    every form and writes only the chosen one: the first shortest index
+    and the packed tables where strictly shorter."""
+    tables, packed = native.write_tables(mode == MODE_MARKOV, lengths)
+    flags = FLAG_PACKED_TABLES if packed else 0
     if idx_lens is None:
-        return tables[0], None, flags
-    index = native.write_index(idx_lens, INDEX_GROUPS)
-    if index is None:
-        return None
+        return tables, None, flags
+    index, form = native.write_index(idx_lens, INDEX_GROUPS)
     form_flags = (0, FLAG_ENTROPY_INDEX,
                   *(FLAG_GROUPED_INDEX,) * len(INDEX_GROUPS))
-    return tables[0], index[0], flags | form_flags[index[1]]
-
-
-def _metadata_numpy(mode: int, lengths: np.ndarray, idx_lens):
-    """_metadata_native's result in numpy: every form written in full,
-    the first shortest index kept, the packed tables where strictly
-    shorter."""
-    index, flags = None, 0
-    if idx_lens is not None:
-        variants = [(pack_index(idx_lens), 0),
-                    (pack_index_entropy(idx_lens), FLAG_ENTROPY_INDEX)]
-        variants += [(pack_index_grouped(idx_lens, group=g),
-                      FLAG_GROUPED_INDEX) for g in INDEX_GROUPS]
-        index, flags = min(variants, key=lambda v: len(v[0]))
-    tables = serialize_tables(mode, lengths)
-    if mode == MODE_MARKOV:
-        packed_tables = serialize_tables_packed(lengths)
-        if len(packed_tables) < len(tables):
-            tables = packed_tables
-            flags |= FLAG_PACKED_TABLES
-    return tables, index, flags
+    return tables, index, flags | form_flags[form]
 
 
 def build_container(mode: int, orig_len: int, block_size: int,
@@ -453,12 +363,7 @@ def build_container(mode: int, orig_len: int, block_size: int,
             flags |= FLAG_ALIGNED_PAYLOAD
         du_log2 = 0
         n_blocks = len(bit_lengths)
-    writer = "native"
-    metadata = _metadata_native(mode, lengths, idx_lens)
-    if metadata is None:
-        writer = "numpy"
-        metadata = _metadata_numpy(mode, lengths, idx_lens)
-    tables, index, extra = metadata
+    tables, index, extra = _metadata(mode, lengths, idx_lens)
     flags |= extra
     if index is None:
         index = np.asarray(bit_lengths, dtype="<u4").tobytes()
@@ -468,7 +373,6 @@ def build_container(mode: int, orig_len: int, block_size: int,
     parts = [head, tables, index, *pieces]
     if crc is not None:
         parts.append(struct.pack("<I", crc & 0xFFFFFFFF))
-    BUILDS[writer] += 1
     return b"".join(parts)
 
 
@@ -495,7 +399,6 @@ def parse_container(blob: bytes, head_only: bool = False,
     lengths, off = parse_tables(mode, blob, off,
                                 packed=bool(flags & FLAG_PACKED_TABLES))
     # the lengths size the decode tables of every route, host and device
-    from .utils import native
     native.check_code_lengths(lengths)
     idx_start = off
     if flags & FLAG_SUBSTREAMS:
@@ -557,28 +460,6 @@ def parse_container(blob: bytes, head_only: bool = False,
                          decode_unit=decode_unit, lengths=lengths,
                          bit_lengths=bit_lengths, byte_lengths=byte_lengths,
                          index_bytes=index_bytes, payload_off=off, crc32=crc)
-
-
-def split_payload(blob: bytes, meta: ContainerMeta) -> list[bytes]:
-    byte_lens = meta.byte_lengths
-    offs = np.concatenate([[0], np.cumsum(byte_lens)]) + meta.payload_off
-    return [blob[offs[i]:offs[i + 1]] for i in range(len(byte_lens))]
-
-
-def payload_to_words(blob: bytes, meta: ContainerMeta, W: int,
-                     lo: int = 0, hi: int | None = None) -> np.ndarray:
-    """Unit-stream unpacking: payload -> (n_units, W) uint32 (native
-    threaded memcpy via utils/native.py, numpy-mask fallback).
-    [lo, hi) selects a unit range (chunked decode)."""
-    from .utils import native
-    byte_lens = meta.byte_lengths[lo:hi]
-    n_units = len(byte_lens)
-    start = int(meta.byte_lengths[:lo].sum())
-    total = int(byte_lens.sum())
-    flat = np.frombuffer(
-        blob, np.uint8, count=total, offset=meta.payload_off + start)
-    buf = native.split_rows(flat, byte_lens, W * 4)
-    return buf.view(">u4").astype(np.uint32).reshape(n_units, W)
 
 
 def container_size(meta: ContainerMeta) -> int:

@@ -40,8 +40,7 @@ that `mhc_tpu.api.compress` writes for the same input.
 
 The host plans the units once each way, in one pass of the host library
 (`utils/unit_plan.cpp`) that writes the plan into the staging buffer of
-its one upload; the numpy plan runs where the library does not load
-(`PLANS` counts each route).
+its one upload.
 
 Each host step is a span (`utils.metrics.span`; no span synchronises):
 `mhc.engine.encode` around the encode, and inside it `tables` (the
@@ -55,7 +54,6 @@ inside it `decode_plan` (the units' checks, lengths and literal mask),
 
 from __future__ import annotations
 
-import collections
 import math
 import threading
 from dataclasses import dataclass
@@ -63,7 +61,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import api, container
+from . import container
 from .config import resolve_device
 from .models.entropy import get_model
 from .ops import bitpack
@@ -78,12 +76,6 @@ _REJECTED = {
     "merge": "the XLA merge packer, on ROADMAP.md's \"Do not port\" list",
     "scatter": "the XLA scatter packer, on ROADMAP.md's \"Do not port\" "
                "list"}
-
-# Unit plans by route since the last `PLANS.clear()`, one an encode and
-# one a decode: "native", the host library's one pass
-# (utils/unit_plan.cpp), or "numpy", where the library does not load. No
-# metric reads it; tests do.
-PLANS: collections.Counter = collections.Counter()
 
 # each thread's staging buffer for the plans' one upload (`_staging`)
 _host = threading.local()
@@ -123,13 +115,14 @@ class EncodeResult:
 
 
 def stage(data: bytes, mode: str = "markov",
-          block_size: int = api.DEFAULT_BLOCK_SIZE,
+          block_size: int = container.DEFAULT_BLOCK_SIZE,
           decode_unit: int | None = None, device=None) -> Staged:
     """Blockify and copy the input to `device`. Not part of codec time."""
     model = get_model(mode)
     dev = resolve_device(device)
-    du = api.resolve_decode_unit(block_size, decode_unit, model.markov)
-    units, n_valid = api.blockify(data, du)
+    du = container.resolve_decode_unit(block_size, decode_unit,
+                                       model.markov)
+    units, n_valid = container.blockify(data, du)
     return Staged(mode=model.name, block_size=block_size, decode_unit=du,
                   orig_len=len(data), n_units=units.shape[0],
                   units=torch.from_numpy(units).to(dev),
@@ -241,9 +234,8 @@ def _encode_plan(bits: np.ndarray, st: Staged, aligned: bool):
     `st`'s units: (bit lengths, container-layout bytes, total words,
     staged upload), the two length arrays fresh (R,) int64 and the upload
     the (R + 1,) int64 word offsets with the total last and the (R,)
-    uint8 literal flags, in this thread's staging buffer. One native pass
-    (`native.plan_encode`), or numpy where the library does not load;
-    `PLANS` counts each."""
+    uint8 literal flags, in this thread's staging buffer: one native pass
+    (`native.plan_encode`)."""
     R = len(bits)
     literal = st.decode_unit != st.block_size
     staged = _staging((np.int64, (R + 1,)), (np.uint8, (R,)))
@@ -251,19 +243,6 @@ def _encode_plan(bits: np.ndarray, st: Staged, aligned: bool):
     bit_lens, byte_lens = np.empty(R, np.int64), np.empty(R, np.int64)
     total = native.plan_encode(bits, st.orig_len, st.decode_unit, literal,
                                aligned, bit_lens, byte_lens, bounds, flags)
-    route = "native" if total is not None else "numpy"
-    if total is None:
-        bits = np.asarray(bits, np.int64)
-        nv = host_n_valid(st.orig_len, st.decode_unit, R)
-        raw = (bitpack.literal_unit_mask(bits, nv, aligned) if literal
-               else np.zeros(R, bool))
-        bit_lens[:] = np.where(raw, nv * 8, bits)
-        byte_lens[:] = container.stream_byte_lens(
-            bit_lens, get_model(st.mode).mode)
-        bounds[:] = _bounds((bit_lens + 31) // 32)
-        flags[:] = raw
-        total = int(bounds[-1])
-    PLANS[route] += 1
     return bit_lens, byte_lens, total, staged
 
 
@@ -422,10 +401,9 @@ def _decode_plan(enc: EncodeResult):
     the expansion's row width in words, the upload the code lengths as
     given (uint8), the (R + 1,) int64 offsets of the unit streams in the
     payload, n_dec (R,) int32 and the (n,) int64 literal rows, in this
-    thread's staging buffer. Raises ValueError first where a unit's
-    length is corrupt (`check_unit_lengths`). One native pass
-    (`native.plan_decode`), or numpy where the library does not load;
-    `PLANS` counts each."""
+    thread's staging buffer: one native pass (`native.plan_decode`).
+    Raises ValueError first where a unit's length is corrupt, on
+    `check_unit_lengths`'s bounds."""
     du = enc.decode_unit
     R = enc.n_units
     byte_lens = np.asarray(enc.byte_lens, np.int64)
@@ -438,49 +416,15 @@ def _decode_plan(enc: EncodeResult):
     buf, parts = _staging((np.uint8, lengths.shape), (np.int64, (R + 1,)),
                           (np.int32, (R,)), (np.int64, (R,)))
     lens_v, bounds, n_dec, rows = (v for _, v in parts)
-    got = native.plan_decode(byte_lens, enc.bit_lens, enc.orig_len, du,
-                             enc.aligned, literal,
-                             _longest_unit(du, enc.aligned), bounds, n_dec,
-                             rows)
-    route = "native" if got is not None else "numpy"
-    if got is None:
-        W, raw_rows = _decode_plan_numpy(enc, byte_lens, literal, bounds,
-                                         n_dec)
-        got = W, len(raw_rows)
-        rows[: got[1]] = raw_rows
-    W, n_raw = got
-    PLANS[route] += 1
+    W, n_raw = native.plan_decode(byte_lens, enc.bit_lens, enc.orig_len,
+                                  du, enc.aligned, literal,
+                                  _longest_unit(du, enc.aligned), bounds,
+                                  n_dec, rows)
     lens_v[...] = lengths
     # the rows, last, cut to the literals
     s = parts[-1][0]
     parts[-1] = (s, rows[:n_raw])
     return W, n_raw, (buf[: s + 8 * n_raw], parts)
-
-
-def _decode_plan_numpy(enc: EncodeResult, byte_lens: np.ndarray,
-                       literal: bool, bounds: np.ndarray, n_dec: np.ndarray):
-    """`_decode_plan`'s numpy route: the checks, then the offsets and
-    n_dec written into `bounds` and `n_dec`; returns (W, the literal
-    rows)."""
-    du = enc.decode_unit
-    R = enc.n_units
-    check_unit_lengths(byte_lens, du, enc.aligned, enc.orig_len)
-    if enc.bit_lens is None and not enc.aligned:
-        # parsed unaligned container: byte-granular expansion (K12)
-        lens = byte_lens
-        W = int(-(-byte_lens.max() // 4)) + 1 if R else 1
-    else:
-        # word-aligned payload: an engine result knows each unit's words
-        # from its bits; a parsed aligned container stores words * 4
-        lens = ((enc.bit_lens + 31) // 32 if enc.bit_lens is not None
-                else byte_lens // 4).astype(np.int64)
-        W = int(lens.max()) + 1 if R else 1
-    nv = host_n_valid(enc.orig_len, du, R)
-    raw = (bitpack.raw_unit_mask(byte_lens, nv, enc.aligned) if literal
-           else np.zeros(R, bool))
-    bounds[:] = _bounds(lens)
-    n_dec[:] = np.where(raw, 0, nv)
-    return W, np.flatnonzero(raw)
 
 
 def row_width(enc: EncodeResult) -> int:

@@ -22,6 +22,7 @@ import torch
 from .. import container
 from ..ops import histogram, huffman
 from ..ops.kernels import huffman_cuda, tables_cuda
+from ..utils import native
 
 
 @dataclass(frozen=True)
@@ -40,9 +41,7 @@ class EntropyModel:
 
     def lengths_from_counts(self, counts: np.ndarray) -> np.ndarray:
         """Deterministic uint8 code lengths of the counts' shape ((256,
-        256) or (256,)) from host counts: the native C++ builder, or its
-        bit-identical numpy twin where the library cannot be built."""
-        from ..utils import native
+        256) or (256,)) from host counts: the native C++ builder."""
         scaled = huffman.rescale_counts(np.asarray(counts))
         return native.code_lengths(scaled, huffman.MAX_CODE_LEN)
 

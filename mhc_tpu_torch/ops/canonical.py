@@ -17,7 +17,6 @@ then looks the symbol up by rank.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .huffman import MAX_CODE_LEN
@@ -84,12 +83,3 @@ def canonical_tables_plain(lengths: torch.Tensor, rows: int) -> dict:
     if lengths.shape[0] == rows:
         return t
     return {k: v.expand(rows, v.shape[-1]).contiguous() for k, v in t.items()}
-
-
-def canonical_codes_host(lengths: np.ndarray,
-                         max_len: int = MAX_CODE_LEN) -> dict:
-    """canonical_codes on host numpy lengths, returning numpy arrays (the
-    container's metadata codecs)."""
-    t = canonical_codes(torch.from_numpy(np.asarray(lengths, np.int64)),
-                        max_len)
-    return {k: v.numpy() for k, v in t.items()}

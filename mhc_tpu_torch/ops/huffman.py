@@ -2,8 +2,8 @@
 
 Counterpart of `mhc_tpu/ops/huffman.py`. The table build runs once per
 encode on 256 contexts (Markov) or one row (order-0), on either side:
-  host:   `rescale_counts` -> the native C++ builder in `utils/native.py`,
-          or its numpy twin `code_lengths_np`;
+  host:   `rescale_counts` -> the native C++ builder in `utils/native.py`
+          (K11's plain version `code_lengths_np` gives the same bits);
   device: `code_lengths` on a counts tensor (K11, `ops/kernels/
           huffman_cuda.py`; the reference's `code_lengths` with
           `rescale_counts_jax`), the counts never leaving the device; the

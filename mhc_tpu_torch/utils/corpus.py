@@ -111,7 +111,7 @@ def grid_cases(mode: str, block_size: int) -> list:
     first argument of GRID_DECODE_UNITS that gives it (a refused one, or
     a unit of 1 or 2 bytes under a larger block, is no case), crc on; at
     GRID_CRC_OFF_BLOCK_SIZE each again with crc off."""
-    from ..api import resolve_decode_unit
+    from ..container import resolve_decode_unit
     cases, seen = [], set()
     for arg in GRID_DECODE_UNITS:
         arg = block_size if arg == "block" else arg

@@ -1,13 +1,12 @@
 """ctypes binding for the repo's native host runtime (native/*.cpp).
 
 The port's own binding to the C++ library that `mhc_tpu` also uses: the
-deterministic Huffman length builder and the container's metadata
-decoders and writer, which keep a numpy fallback, so the codec also
-works where no C++ compiler is installed; the engine's unit plans,
-whose numpy route stays in `engine`; and the threaded host unit
-codec of the hybrid executor (`join_rows` to `decode_units`), which has
-none and raises without the library: a caller that asks for host
-threads gets them or an error.
+deterministic Huffman length builder, the container's metadata decoder
+and writer, the engine's unit plans, and the threaded host unit codec
+of the hybrid executor (`join_rows` to `decode_units`). The library is
+a requirement of the port, as `nvcc` is for its kernels: every binding
+calls it, and a library that cannot be built or loaded raises
+RuntimeError with the reason, the compiler's output included.
 
 The port compiles `native/mhc_host.cpp`, `native/mhc_codec.cpp` and its
 own `utils/container_writer.cpp` (the container writer's table section
@@ -24,9 +23,12 @@ from __future__ import annotations
 
 import ctypes
 import os
+import struct
 import subprocess
 
 import numpy as np
+
+from ..ops.huffman import MAX_CODE_LEN
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -45,7 +47,6 @@ _HOST_VERSION = 2   # mhc_version()
 _CODEC_VERSION = 5  # mhc_codec_version()
 
 _lib = None
-_tried = False
 
 
 def build(build_dir: str = BUILD_DIR) -> str:
@@ -73,12 +74,14 @@ def build(build_dir: str = BUILD_DIR) -> str:
 
 
 def load(build_dir: str = BUILD_DIR):
-    """The host library of `build_dir`, built if stale, typed; None when
-    it cannot be built or loaded or its versions are not the port's."""
+    """The host library of `build_dir`, built if stale, typed. Raises
+    RuntimeError where it cannot be built (with the compiler's output)
+    or loaded, or its versions are not the port's."""
+    so = build(build_dir)
     try:
-        lib = ctypes.CDLL(build(build_dir))
-    except (OSError, RuntimeError):
-        return None
+        lib = ctypes.CDLL(so)
+    except OSError as e:
+        raise RuntimeError(f"cannot load {so}: {e}") from e
     lib.mhc_split.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -130,35 +133,28 @@ def load(build_dir: str = BUILD_DIR):
     lib.mhc_plan_decode.restype = ctypes.c_int64
     lib.mhc_codec_version.restype = ctypes.c_int
     lib.mhc_version.restype = ctypes.c_int
-    if (lib.mhc_version() == _HOST_VERSION
-            and lib.mhc_codec_version() == _CODEC_VERSION):
-        return lib
-    return None
+    versions = (lib.mhc_version(), lib.mhc_codec_version())
+    if versions != (_HOST_VERSION, _CODEC_VERSION):
+        raise RuntimeError(f"{so} has versions {versions}, the port "
+                           f"{(_HOST_VERSION, _CODEC_VERSION)}")
+    return lib
 
 
-def _load():
-    global _lib, _tried
-    if not _tried:
-        _tried = True
-        _lib = load()
+def require():
+    """The port's host library (`BUILD_DIR`), loaded once; raises
+    RuntimeError as `load` does."""
+    global _lib
+    if _lib is None:
+        _lib = load(BUILD_DIR)
     return _lib
-
-
-def available() -> bool:
-    return _load() is not None
 
 
 def code_lengths(scaled_counts: np.ndarray, max_len: int) -> np.ndarray:
     """Huffman code lengths for (..., 256) pre-rescaled counts, bit-identical
-    to `ops.huffman.code_lengths_np`, which it falls back to without the
-    library."""
+    to `ops.huffman.code_lengths_np`."""
+    lib = require()
     counts = np.ascontiguousarray(scaled_counts, dtype=np.int32)
     flat = counts.reshape(-1, 256)
-    lib = _load()
-    if lib is None:
-        from ..ops import huffman
-        rows = [huffman.code_lengths_np(row, max_len) for row in flat]
-        return np.stack(rows).reshape(counts.shape).astype(np.uint8)
     out = np.empty(flat.shape, dtype=np.uint8)
     lib.mhc_code_lengths(flat.ctypes.data, flat.shape[0], max_len,
                          out.ctypes.data)
@@ -172,7 +168,6 @@ def check_code_lengths(lengths) -> None:
     one-symbol row has length 1). The native table builders fill each
     code's 2**(15 - l) entries of a 2**15-entry table, so an over-full
     set read from a container would write past it."""
-    from ..ops.huffman import MAX_CODE_LEN
     lens = np.asarray(lengths, dtype=np.int64)
     if lens.size == 0:
         return
@@ -187,92 +182,55 @@ def entropy_decode(coded: bytes, lengths: np.ndarray, n_out: int):
     """Decode n_out symbols of a canonical order-0 stream (container
     metadata sections). Returns (symbols uint8, bytes_consumed). Raises
     ValueError where `lengths` is no prefix code (check_code_lengths)."""
+    lib = require()
     check_code_lengths(lengths)
     lens = np.ascontiguousarray(lengths, dtype=np.uint8)
-    A = lens.shape[0]
     src = np.frombuffer(coded, dtype=np.uint8)
     out = np.empty(n_out, dtype=np.uint8)
     if n_out == 0:
         return out, 0
-    lib = _load()
-    if lib is not None:
-        used = lib.mhc_entropy_decode(src.ctypes.data, src.size,
-                                      lens.ctypes.data, A, n_out,
-                                      out.ctypes.data)
-        if used < 0:
-            raise ValueError("mhc: corrupt entropy-coded section")
-        return out, int(used)
-    return _entropy_decode_py(src, lens, n_out, out)
-
-
-def _entropy_decode_py(src, lens, n_out, out):
-    """Canonical decode through a 15-bit lookup table, in Python."""
-    from ..ops.canonical import canonical_codes_host
-    full = np.zeros(256, np.int64)
-    full[:lens.shape[0]] = lens
-    codes = canonical_codes_host(full)["codes"].astype(np.int64)
-    lut_sym = np.zeros(1 << 15, np.uint8)
-    lut_len = np.zeros(1 << 15, np.uint8)
-    for s in range(lens.shape[0]):
-        if full[s] == 0:
-            continue
-        a = int(codes[s]) << (15 - int(full[s]))
-        b = (int(codes[s]) + 1) << (15 - int(full[s]))
-        lut_sym[a:b] = s
-        lut_len[a:b] = full[s]
-    mask64 = (1 << 64) - 1
-    acc = nbits = pos = bits_used = 0
-    nb = src.size
-    for i in range(n_out):
-        while nbits <= 56:
-            byte = int(src[pos]) if pos < nb else 0
-            acc = (acc | byte << (56 - nbits)) & mask64
-            pos += 1
-            nbits += 8
-        w = acc >> (64 - 15)
-        ln = int(lut_len[w])
-        if ln == 0:
-            raise ValueError("mhc: corrupt entropy-coded section")
-        out[i] = lut_sym[w]
-        acc = (acc << ln) & mask64
-        nbits -= ln
-        bits_used += ln
-    return out, (bits_used + 7) // 8
+    used = lib.mhc_entropy_decode(src.ctypes.data, src.size,
+                                  lens.ctypes.data, lens.shape[0], n_out,
+                                  out.ctypes.data)
+    if used < 0:
+        raise ValueError("mhc: corrupt entropy-coded section")
+    return out, int(used)
 
 
 def write_tables(markov: bool, lengths: np.ndarray):
     """The container's table section (utils/container_writer.cpp): returns
-    (bytes, packed), `packed` where the Markov lengths are entropy-coded;
-    None without the library, or where the lengths are not uint8 of the
-    mode's shape with each in 0..15."""
-    lib = _load()
-    lens = np.ascontiguousarray(lengths)
-    if (lib is None or lens.dtype != np.uint8
-            or lens.size != (65536 if markov else 256)):
-        return None
+    (bytes, packed), `packed` where the Markov lengths are entropy-coded.
+    Lengths not uint8 of the mode's shape are converted here; raises
+    ValueError where one is over 15."""
+    lib = require()
+    lens = np.ascontiguousarray(lengths, dtype=np.uint8).reshape(
+        65536 if markov else 256)
     out = np.empty(32 + 128 * 256 + 8, np.uint8)
     packed = ctypes.c_int32()
     n = lib.mhc_write_tables(1 if markov else 0, lens.ctypes.data,
                              out.ctypes.data, ctypes.byref(packed))
-    return None if n < 0 else (out[:n].tobytes(), bool(packed.value))
+    if n < 0:
+        raise ValueError(f"code lengths over {MAX_CODE_LEN}")
+    return out[:n].tobytes(), bool(packed.value)
 
 
 def write_index(byte_lens: np.ndarray, groups: tuple):
     """The sub-stream unit index (utils/container_writer.cpp) in the
     first shortest of its forms: returns (bytes, form), form 0 the flat
     packed index, 1 the entropy-coded one, 2 + i the grouped index at
-    `groups[i]`; None without the library or where the format cannot
-    hold a length."""
-    lib = _load()
-    if lib is None:
-        return None
+    `groups[i]`. Raises struct.error, as the reference's writer does,
+    where the format cannot hold a length: one negative, or a base (the
+    least length of the index or of a group) over the u16's 65535."""
+    lib = require()
     lens = np.ascontiguousarray(byte_lens, dtype=np.int64)
     g = np.asarray(groups, np.int64)
     out = np.empty(3 + 8 * lens.size + 8, np.uint8)
     form = ctypes.c_int32()
     n = lib.mhc_write_index(lens.ctypes.data, lens.size, g.ctypes.data,
                             g.size, out.ctypes.data, ctypes.byref(form))
-    return None if n < 0 else (out[:n].tobytes(), form.value)
+    if n < 0:
+        raise struct.error("mhc: a unit length the index cannot hold")
+    return out[:n].tobytes(), form.value
 
 
 def _check_out(*arrays) -> None:
@@ -292,10 +250,8 @@ def plan_encode(bits: np.ndarray, orig_len: int, du: int, literal: bool,
     """The encode's unit plan (utils/unit_plan.cpp) of R units from their
     (R,) int32 coded bit counts, written into `bit_lens`, `byte_lens`
     ((R,) int64), `bounds` ((R + 1,) int64) and `flags` ((R,) uint8);
-    returns the total words, or None without the library."""
-    lib = _load()
-    if lib is None:
-        return None
+    returns the total words."""
+    lib = require()
     b = np.ascontiguousarray(bits, np.int32)
     R = b.size
     _check_out((bit_lens, np.int64, R), (byte_lens, np.int64, R),
@@ -313,11 +269,9 @@ def plan_decode(byte_lens: np.ndarray, bit_lens, orig_len: int, du: int,
     stored bytes (and bit lengths, or None), written into `bounds` ((R +
     1,) int64), `n_dec` ((R,) int32) and the first entries of `rows` ((R,)
     int64); returns (the expansion's row width in words, the literal
-    count), or None without the library. Raises ValueError where a unit's
-    stored bytes exceed `worst` or cannot hold its symbols."""
-    lib = _load()
-    if lib is None:
-        return None
+    count). Raises ValueError where a unit's stored bytes exceed `worst`
+    or cannot hold its symbols."""
+    lib = require()
     sl = np.ascontiguousarray(byte_lens, np.int64)
     R = sl.size
     bl = None if bit_lens is None else np.ascontiguousarray(bit_lens,
@@ -336,41 +290,11 @@ def plan_decode(byte_lens: np.ndarray, bit_lens, orig_len: int, du: int,
     return width.value, int(n_raw)
 
 
-def split_rows(payload, lens: np.ndarray, stride: int) -> np.ndarray:
-    """Packed payload + per-row lengths -> (R, stride) uint8 zero-padded
-    rows."""
-    buf = np.frombuffer(payload, dtype=np.uint8)
-    lens = np.ascontiguousarray(lens, dtype=np.int64)
-    R = lens.shape[0]
-    offsets = np.zeros(R, dtype=np.int64)
-    np.cumsum(lens[:-1], out=offsets[1:])
-    rows = np.zeros((R, stride), dtype=np.uint8)
-    lib = _load()
-    if lib is None:
-        mask = np.arange(stride)[None, :] < lens[:, None]
-        rows[mask] = buf[: int(lens.sum())]
-        return rows
-    lib.mhc_split(buf.ctypes.data, R, stride, lens.ctypes.data,
-                  offsets.ctypes.data, rows.ctypes.data)
-    return rows
-
-
 # ---------------------------------------------------------------------------
 # The host unit codec (native/mhc_codec.cpp, threaded): bit-identical to
 # the device path by construction, so the hybrid executor may give any
-# unit to either. No fallbacks.
+# unit to either.
 # ---------------------------------------------------------------------------
-
-def require():
-    """The loaded library; raises RuntimeError without it."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(
-            "the native host library "
-            f"({os.path.join(BUILD_DIR, LIB_NAME)}) failed to build or "
-            "load")
-    return lib
-
 
 def join_rows(rows: np.ndarray, lens: np.ndarray) -> bytes:
     """Concatenate per-row prefixes: rows (R, S) uint8, lens (R,) ->

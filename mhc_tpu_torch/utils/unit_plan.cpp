@@ -5,8 +5,8 @@
 // unit's stream length, the offsets, the literal mask from the container
 // layout, the symbols to decode and the literal rows).
 //
-// Each output is the numpy route's (engine._encode_plan where the
-// library does not load, engine._decode_plan_numpy) value for value.
+// Each output is the value the container format's rules give
+// (docs/FORMAT.md; tests/test_torch_plan.py states them in numpy).
 // Divisions by powers of two are arithmetic right shifts of int64, which
 // floor as Python's // does, negative values included. The engine hands
 // the offsets, flags, counts and rows their places in its one upload

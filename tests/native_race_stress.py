@@ -5,8 +5,10 @@
 TREE is a copy of the repo to spend (`git archive HEAD | tar -x -C
 TREE`): each round deletes `TREE/native/libmhc_host.so` and `TREE/build/`,
 then starts 6 loaders of the reference (`mhc_tpu.utils.native`) and 6 of
-the port (`mhc_tpu_torch.utils.native`) at once, each printing
-`available()`, and counts those that print anything but True. The
+the port (`mhc_tpu_torch.utils.native`) at once, each printing True
+once its library has loaded (the reference's `available()`; the port's
+`require()` raises instead of returning without one), and counts those
+that print anything but True. The
 reference's loaders race each other on `native/libmhc_host.so` (its
 `make -C native` rewrites the file in place); a port that builds its own
 library elsewhere, atomically, loses none. One JSON line at the end.
@@ -21,7 +23,7 @@ import sys
 LOADERS = {
     "reference": "from mhc_tpu.utils import native; print(native.available())",
     "port": ("from mhc_tpu_torch.utils import native; "
-             "print(native.available())"),
+             "print(native.require() is not None)"),
 }
 
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import chip_smoke
+from mhc_tpu import container as jax_container
 from mhc_tpu_torch import api, container, engine, hybrid
 from mhc_tpu_torch.models.entropy import get_model
 from mhc_tpu_torch.ops import bitpack
@@ -107,7 +108,8 @@ def _with_unit_lengths(blob_bytes: bytes, byte_lens: np.ndarray) -> bytes:
         index = (byte_lens * 8).astype("<u4").tobytes()
     else:
         aligned = bool(meta.flags & container.FLAG_ALIGNED_PAYLOAD)
-        index = container.pack_index(byte_lens // 4 if aligned else byte_lens)
+        index = jax_container.pack_index(byte_lens // 4 if aligned
+                                         else byte_lens)
         head[6] = ((meta.flags | container.FLAG_PACKED_INDEX)
                    & ~(container.FLAG_ENTROPY_INDEX
                        | container.FLAG_GROUPED_INDEX))

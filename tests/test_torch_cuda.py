@@ -518,28 +518,18 @@ def test_staged_world_of_one_on_the_card(dev, mode):
     assert pipeline.gather_bytes(enc, engine.decode(enc)) == data
 
 
-def test_native_plans_on_the_card(dev, monkeypatch):
+def test_native_plans_on_the_card(dev):
     """An engine round trip on the card plans its units in the host
-    library both ways (`engine.PLANS`), in both modes, and writes the
-    container and the bytes of the numpy route."""
-    from mhc_tpu_torch.utils import native
+    library both ways, in both modes, and writes the container and the
+    bytes of the CPU route."""
     data = _data(300_001, 22)
     crc = zlib.crc32(data) & 0xFFFFFFFF
     for mode in ("markov", "huffman"):
         st = engine.stage(data, mode=mode, device=dev)
-        got = []
-        for route in ("native", "numpy"):
-            with monkeypatch.context() as m:
-                if route == "numpy":
-                    m.setattr(native, "_load", lambda: None)
-                engine.PLANS.clear()
-                enc = engine.encode(st)
-                out = engine.fetch_bytes(enc, engine.decode(enc))
-                assert engine.PLANS == {route: 2}
-            got.append((engine.assemble_container(enc, crc), out))
-        assert got[0] == got[1]
-        assert got[0] == (mhc_tpu_torch.compress(data, mode=mode,
-                                                 device="cpu"), data)
+        enc = engine.encode(st)
+        out = engine.fetch_bytes(enc, engine.decode(enc))
+        assert (engine.assemble_container(enc, crc), out) == (
+            mhc_tpu_torch.compress(data, mode=mode, device="cpu"), data)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from mhc_tpu_torch import engine
 from mhc_tpu_torch.models.entropy import tables_from_numpy
 from mhc_tpu_torch.ops.kernels import encode_cuda
 from tests.corpus import english_like, mixed_binary
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def _case(mode: str, B: int, n: int, seed: int):

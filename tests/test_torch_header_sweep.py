@@ -40,7 +40,6 @@ import urllib.error
 import urllib.request
 
 import pytest
-import torch
 
 import chip_smoke
 from mhc_tpu_torch import api, container, engine, hybrid, serve
@@ -49,6 +48,7 @@ from mhc_tpu_torch.ops.kernels import decode_cuda, stages_cuda
 from mhc_tpu_torch.parallel import pipeline
 from mhc_tpu_torch.utils import native
 from tests.corpus import english_like, mixed_binary
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 BYTE_VALUES = (0, 1, 2, 3, 15, 16, 31, 32, 33, 40, 63, 64, 128, 200, 255)
 # a call runs in milliseconds on these sizes; a header claim that sized
@@ -77,17 +77,6 @@ BASES = {
 FIELDS = {"orig_len": (8, "<Q", (1 << 40, 1 << 63)),
           "block_size": (16, "<I", ()),
           "n_blocks": (20, "<I", ())}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The sweep is thousands of small torch calls: a pool of threads per
-    test worker spins against the other workers' pools (as in
-    test_torch_param_grid.py), so the file runs on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

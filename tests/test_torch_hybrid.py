@@ -8,6 +8,7 @@ from mhc_tpu import api as jax_api
 from mhc_tpu_torch import hybrid
 from mhc_tpu_torch.utils import native
 from tests.corpus import english_like, mixed_binary
+from tests.torch_fixtures import no_host_library  # noqa: F401
 
 DATA = mixed_binary(250_000, seed=50)
 
@@ -42,13 +43,15 @@ def test_hybrid_empty_and_tiny():
                                      device="cpu") == data
 
 
-def test_hybrid_raises_without_native_library(monkeypatch):
-    monkeypatch.setattr(native, "_load", lambda: None)
-    assert not native.available()
-    with pytest.raises(RuntimeError, match="native host library"):
+def test_hybrid_raises_without_native_library(no_host_library):
+    blob = jax_api.compress(b"abc")
+    no_host_library()
+    with pytest.raises(RuntimeError, match=r"g\+\+ failed"):
+        native.require()
+    with pytest.raises(RuntimeError, match=r"g\+\+ failed"):
         hybrid.compress(b"abc", device="cpu")
-    with pytest.raises(RuntimeError, match="native host library"):
-        hybrid.decompress(jax_api.compress(b"abc"), device="cpu")
+    with pytest.raises(RuntimeError, match=r"g\+\+ failed"):
+        hybrid.decompress(blob, device="cpu")
 
 
 def test_host_fraction_out_of_range_raises():

@@ -24,8 +24,7 @@ _LOADER = r'''
 import json, sys
 from mhc_tpu_torch.utils import native
 lib = native.load(sys.argv[1])
-print(json.dumps(None if lib is None else
-                 [lib.mhc_version(), lib.mhc_codec_version()]))
+print(json.dumps([lib.mhc_version(), lib.mhc_codec_version()]))
 '''
 
 
@@ -74,7 +73,7 @@ def test_a_newer_source_triggers_one_rebuild(tmp_path, monkeypatch):
     assert os.stat(so).st_ino != old_inode                 # replaced whole
     assert native.build(build_dir) == so and calls == ["g++"]
     lib = native.load(build_dir)
-    assert lib is not None and lib.mhc_version() == native._HOST_VERSION
+    assert lib.mhc_version() == native._HOST_VERSION
     assert _listing(NATIVE) == before
 
 
@@ -85,7 +84,11 @@ def test_a_failed_build_leaves_nothing_and_loads_none(tmp_path,
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.build(str(tmp_path))
     assert os.listdir(tmp_path) == []
-    assert native.load(str(tmp_path)) is None
+    # the library is required: its loader raises with the compiler's
+    # output, as the build does
+    with pytest.raises(RuntimeError, match="no-such-gcc-option"):
+        native.load(str(tmp_path))
+    assert os.listdir(tmp_path) == []
 
 
 def test_the_binding_runs_no_make_and_names_no_native_output():

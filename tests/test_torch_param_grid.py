@@ -49,6 +49,7 @@ from mhc_tpu_torch.ops import bitpack
 from mhc_tpu_torch.ops.kernels import stages_cuda
 from mhc_tpu_torch.parallel import pipeline
 from mhc_tpu_torch.utils import corpus
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 INPUTS = corpus.grid_inputs()
 PLAIN_DECODE_SYMBOLS = 1024
@@ -57,18 +58,6 @@ PLAIN_DECODE_SYMBOLS = 1024
 @pytest.fixture(scope="module")
 def table():
     return corpus.load_grid_table()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The grid is thousands of small torch calls: a pool of threads per
-    test worker spins against the other workers' pools (beside five busy
-    processes on 8 cores a case took 8x as long), so the file runs on one
-    thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

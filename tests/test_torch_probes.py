@@ -34,6 +34,7 @@ from mhc_tpu_torch.bench import loop_calib, mosaic_probe, probes, vpu_probe
 from mhc_tpu_torch.ops import histogram
 from mhc_tpu_torch.ops.kernels import probes_cuda
 from mhc_tpu_torch.utils.corpus import make_corpus
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")

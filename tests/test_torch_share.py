@@ -32,6 +32,7 @@ from mhc_tpu_torch import engine
 from mhc_tpu_torch.models.entropy import get_model
 from mhc_tpu_torch.ops.kernels import huffman_cuda
 from mhc_tpu_torch.parallel import mesh as meshmod, pipeline
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "benchmark", "configs",

@@ -15,6 +15,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from mhc_tpu_torch import api, engine
 from mhc_tpu_torch.utils import metrics
 from tests.corpus import mixed_binary
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 # on the CPU each kernel wrapper's span holds its plain version; the
 # table build is the host's, then K13's wrapper

@@ -93,38 +93,36 @@ def _index_cases():
 
 @pytest.mark.parametrize("case", range(5))
 def test_index_pack_unpack_inverse(case):
+    """Each index form as the JAX package writes it reads back in the
+    port's readers."""
     lens = _index_cases()[case].astype(np.int64)
-    for pack, unpack, jax_pack in (
-            (container.pack_index, container.unpack_index,
-             jax_container.pack_index),
-            (container.pack_index_grouped, container.unpack_index_grouped,
-             jax_container.pack_index_grouped),
-            (container.pack_index_entropy, container.unpack_index_entropy,
-             jax_container.pack_index_entropy)):
-        raw = pack(lens)
-        assert raw == jax_pack(lens)
+    for jax_pack, unpack in (
+            (jax_container.pack_index, container.unpack_index),
+            (jax_container.pack_index_grouped,
+             container.unpack_index_grouped),
+            (jax_container.pack_index_entropy,
+             container.unpack_index_entropy)):
+        raw = jax_pack(lens)
         back, off = unpack(b"xx" + raw, 2, len(lens))
         assert off == 2 + len(raw)
         assert (back == lens).all()
 
 
 def test_table_serialize_parse_inverse():
+    """Both table forms as the JAX package writes them read back in the
+    port's parser."""
     rng = np.random.default_rng(4)
     lens0 = rng.integers(0, 16, 256).astype(np.uint8)
-    raw = container.serialize_tables(container.MODE_ORDER0, lens0)
-    assert raw == jax_container.serialize_tables(container.MODE_ORDER0, lens0)
+    raw = jax_container.serialize_tables(container.MODE_ORDER0, lens0)
     back, off = container.parse_tables(container.MODE_ORDER0, raw, 0)
     assert off == len(raw) and (back == lens0).all()
     lensM = rng.integers(0, 16, (256, 256)).astype(np.uint8)
     lensM[rng.random(256) < 0.5] = 0  # absent contexts
-    for serialize, jax_serialize, packed in (
-            (lambda x: container.serialize_tables(container.MODE_MARKOV, x),
-             lambda x: jax_container.serialize_tables(
-                 container.MODE_MARKOV, x), False),
-            (container.serialize_tables_packed,
-             jax_container.serialize_tables_packed, True)):
-        raw = serialize(lensM)
-        assert raw == jax_serialize(lensM)
+    for jax_serialize, packed in (
+            (lambda x: jax_container.serialize_tables(
+                container.MODE_MARKOV, x), False),
+            (jax_container.serialize_tables_packed, True)):
+        raw = jax_serialize(lensM)
         back, off = container.parse_tables(container.MODE_MARKOV, raw, 0,
                                            packed=packed)
         assert off == len(raw) and (back == lensM).all()
