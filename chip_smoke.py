@@ -2074,7 +2074,7 @@ def f5_cases(torch, dev) -> dict:
     520-byte block rounded up to 16), with at most 1 MiB more peak
     allocation than the same route's decode of the clean legacy container
     (whose own decode tables take ~1.1 MB: Markov's K13 table set,
-    835,584 B, and K7's table, 203,776 B); no CUDA error; and api.compress
+    835,584 B, and K7's table, 143,360 B); no CUDA error; and api.compress
     and hybrid.compress refuse block sizes of 0 and 2**32 before any
     kernel launch and allocation."""
     from mhc_tpu_torch import api, hybrid

@@ -25,40 +25,62 @@
 // - K7o: a direct table over the 15-bit window, 2^15 entries of u16
 //   sym | len << 8 (64 KB). One shared-memory load per symbol, no
 //   compares, for every valid code: no code is longer than 15 bits.
-// - K7m: a root table per context over the next 8 bits, 256 x 256 u16
-//   (128 KB): sym | len << 8 when the code is at most 8 bits long, else
-//   0, the escape mark. lim is monotone in l and lim[l] for l <= 8 is a
-//   multiple of 2^7, so a bucket of 128 windows either has one length
-//   <= 8 throughout or lengths > 8 throughout. An escape runs the rule
-//   above restricted to lengths 9..15, from the context's escape row:
-//   lim[9..14] as u16 pairs then bf[9..15] as s16 pairs, 7 words at a
-//   stride of 7 words (odd, so 32 lanes in 32 different contexts read 32
-//   different banks), and the sorted symbols as u8 (64 KB). 199 KB in
-//   all, with the lanes' word rings (below): one block per SM.
+// - K7m: a root table per context over the next 7 bits, 256 x 128 u16
+//   (64 KB): sym | len << 8 when the code is at most 7 bits long, else
+//   0, the escape mark. lim is monotone in l and lim[l] for l <= 7 is a
+//   multiple of 2^8, so a bucket of 256 windows either has one length
+//   <= 7 throughout or lengths > 7 throughout. An escape runs the rule
+//   above restricted to lengths 8..15, from the context's escape row of
+//   48 bytes: lim[8..14] as u16 pairs (clamped to 0x8000; the last high
+//   half 0x8000, which no window reaches), read whole at every symbol;
+//   bf[8..15] as s16 pairs, of which the symbol reads the one its length
+//   picks; 16 bytes of zeros. At a 48-byte stride the 16-byte lim loads
+//   of 8 lanes in contexts distinct mod 8 fall in 8 distinct groups of 4
+//   banks (a 32-byte stride would give 4 groups). And the sorted symbols
+//   as u8 (64 KB). 143,360 B in all.
 //
 // Bound: each unit is a serial dependent chain per symbol (table load ->
-// length -> 64-bit shift -> next window -> next load); the main paths
-// decode 9,627 (K7m) or 3,108 (K7o) units, fewer than one warp per
-// scheduler on the H100's 132 SMs, so the time is the chain's latency
-// times the symbols per unit, not bandwidth. The design strips the chain
-// to one shared-memory load and a few integer ops (K7o), or the root and
-// escape loads side by side and a select (K7m): 32-bit loop bookkeeping,
-// no branch per symbol (a warp's lanes would diverge at nearly every
-// one), the words streamed ahead into a per-lane ring in shared memory by
-// cp.async (see BitReader: a lane's load to a register would stall its
-// whole warp), output staged in registers and stored 16 bytes at a time.
-// At most one block per SM (the table fills it), its threads sized to
-// the units, units interleaved over the blocks.
+// length -> 64-bit shift -> next window -> next load), ~200 cycles a
+// symbol on the H100 against ~60 instructions, so one chain a scheduler
+// leaves most of its issue slots idle. The launch keeps as many chains in
+// flight as the units fill, by decode_cuda.layout's rule from R and the
+// SM count: one block per SM, its threads sized to the units up to 512
+// for K7m (four warps a scheduler) and 1,024 for K7o, units beyond
+// blocks * threads strided over the blocks, so that a last partial round
+// spreads over every SM. Shared memory, of the 232,448 B a block may
+// have: K7m's table 143,360 B and 512 lanes' word rings of 132 B
+// (67,584 B), 210,944 B; K7o's 65,536 B and 1,024 rings, 200,704 B. An
+// 8-bit root (203,776 B in all) would leave room for 217 rings. At
+// 12,800 units (100 MB of 8 KB units) K7m runs 128 threads a block for
+// 97 units each: one round of at most one chain a scheduler, bound by
+// the chain's latency times the symbols a unit; up to 16,896 units (132
+// x 128) no block has more than 128 threads. At 294,914 units (2.4 GB) it
+// runs 512 threads a block, 4.4 rounds of four chains a scheduler, where
+// 128 threads would run 18 rounds of one; a round of four then takes
+// ~2.2x a round of one. There issue binds rather than the chain (a
+// symbol's instructions are integer ops, which issue at half a warp a
+// cycle), though not by their count alone: bf[len] by a load rather than
+// a select of the row's halves and a 64-bit shift took the round 12%
+// faster; the escape's compares in 16-bit lanes of plain integer ops, in
+// place of __vsetgeu2, 1-3% (and 5-7% at one chain a scheduler).
+// The design strips the chain to one shared-memory load and a few integer
+// ops (K7o), or the root and escape loads side by side and a select
+// (K7m): 32-bit loop bookkeeping, no branch per symbol (a warp's lanes
+// would diverge at nearly every one), the words streamed ahead into a
+// per-lane ring in shared memory by cp.async (see BitReader: a lane's
+// load to a register would stall its whole warp), output staged in
+// registers and stored 16 bytes at a time.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kL = 16;                         // MAX_CODE_LEN + 1
-constexpr int kRootBits = 8;                   // K7m's root window
-// escape row: lim[9..14] as u16 pairs, then bf[9..15] as s16 pairs (7
-// words, an odd stride)
-constexpr int kEscStride = 7;
+constexpr int kRootBits = 7;                   // K7m's root window
+constexpr int kEscFirst = kRootBits + 1;       // the shortest escape
+// escape row: lim[8..14] and a 0x8000 pad as u16 pairs (4 words),
+// bf[8..15] as s16 pairs (4 words), 4 words of zeros
+constexpr int kEscStride = 12;
 constexpr int kMarkovRootBytes = 256 * (1 << kRootBits) * 2;
 constexpr int kSymBytes = 256 * 256;
 constexpr int kEscBytes = 256 * kEscStride * 4;
@@ -68,9 +90,9 @@ __host__ __device__ constexpr int lut_bytes(bool markov) {
                 : (1 << 15) * 2;
 }
 
-// Entry i of the table: row i >> bits over window (i & mask) << (15 -
-// bits), by the contract's rule; Markov also writes the u8 symbols and
-// the escape rows.
+// Entry i of the root: row i >> bits over window (i & mask) << (15 -
+// bits), by the contract's rule; Markov also writes the u8 symbols (one
+// for each i < 65,536, twice the root's entries) and the escape rows.
 __global__ void decode_lut_kernel(const int32_t* __restrict__ lim,
                                   const int32_t* __restrict__ base,
                                   const int32_t* __restrict__ first_code,
@@ -78,37 +100,41 @@ __global__ void decode_lut_kernel(const int32_t* __restrict__ lim,
                                   bool markov, uint8_t* __restrict__ lut) {
   const int bits = markov ? kRootBits : 15;
   const int entries = markov ? 256 << kRootBits : 1 << 15;
+  const int n = markov ? kSymBytes : entries;
   uint16_t* root = reinterpret_cast<uint16_t*>(lut);
   uint8_t* syms8 = lut + kMarkovRootBytes;
   uint32_t* esc = reinterpret_cast<uint32_t*>(syms8 + kSymBytes);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < entries;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    const int row = i >> bits;
-    const int w = (i & ((1 << bits) - 1)) << (15 - bits);
-    const int32_t* lr = lim + row * kL;
-    int len = 1;
-    for (int l = 1; l < kL - 1; ++l) len += (w >= lr[l]);
-    const int bf = base[row * kL + len] - first_code[row * kL + len];
-    const int idx = min(max(bf + (w >> (15 - len)), 0), 255);
-    const int sym = sorted_syms[row * 256 + idx];
-    root[i] = (uint16_t)(len <= bits ? sym | len << 8 : 0);
+    if (i < entries) {
+      const int row = i >> bits;
+      const int w = (i & ((1 << bits) - 1)) << (15 - bits);
+      const int32_t* lr = lim + row * kL;
+      int len = 1;
+      for (int l = 1; l < kL - 1; ++l) len += (w >= lr[l]);
+      const int bf = base[row * kL + len] - first_code[row * kL + len];
+      const int idx = min(max(bf + (w >> (15 - len)), 0), 255);
+      const int sym = sorted_syms[row * 256 + idx];
+      root[i] = (uint16_t)(len <= bits ? sym | len << 8 : 0);
+    }
     if (markov) {
       syms8[i] = (uint8_t)sorted_syms[i];
       if (i < 256 * kEscStride) {
-        // halves lo, hi: lim[9 + 2k], lim[10 + 2k] (k < 3), clamped to
-        // 0xFFFF; then bf[9 + 2k], bf[10 + 2k] (k < 4; bf[16] = 0),
-        // clamped to int16. A window is below 2^15, so the clamps change
+        // word k of row r, halves lo, hi: k < 4 lim[8 + 2k], lim[9 + 2k]
+        // clamped to 0x8000 (lim[15], past the contract's 14, is the pad
+        // 0x8000); k < 8 bf[8 + 2(k - 4)], bf[9 + 2(k - 4)] clamped to
+        // int16; 0 past them. A window is below 2^15, so the clamps change
         // no compare, and bf + code < 0 either way below -2^15.
         const int r = i / kEscStride, k = i % kEscStride;
         const int32_t* lr = lim + r * kL;
         auto half = [&](int l) -> uint32_t {
-          if (k < 3) return (uint32_t)min(lr[l], 0xFFFF);
-          if (l > 15) return 0u;
+          if (k < 4) return l < kL - 1 ? (uint32_t)min(lr[l], 0x8000)
+                                       : 0x8000u;
           const int bf = base[r * kL + l] - first_code[r * kL + l];
           return (uint32_t)(min(max(bf, -32768), 32767) & 0xFFFF);
         };
-        const int l = k < 3 ? 9 + 2 * k : 9 + 2 * (k - 3);
-        esc[i] = half(l) | half(l + 1) << 16;
+        const int l = kEscFirst + 2 * (k & 3);
+        esc[i] = k < 8 ? half(l) | half(l + 1) << 16 : 0u;
       }
     }
   }
@@ -194,7 +220,8 @@ struct BitReader {
     // every symbol and kept only at a refill, when the ring holds it.
     const bool refill = nb < 32;
     const uint32_t ahead = ring[wi & (kRing - 1)];
-    buf |= (uint64_t)(refill ? nxt : 0u) << ((32 - nb) & 31);
+    // at a refill 17 <= nb < 32: nxt lands right below the nb bits held
+    buf |= ((uint64_t)(refill ? nxt : 0u) << 32) >> nb;
     nb += refill ? 32 : 0;
     nxt = refill ? ahead : nxt;
     wi += refill;
@@ -202,9 +229,10 @@ struct BitReader {
   }
 };
 
-// Threads per block: each needs its ring beside the table.
+// Threads per block, at most: each needs its ring beside the table, and
+// at 512 a K7m thread may have 128 registers.
 template <bool kMarkov>
-constexpr int kMaxThreads = kMarkov ? 128 : 1024;
+constexpr int kMaxThreads = kMarkov ? 512 : 1024;
 
 template <bool kMarkov>
 __global__ void __launch_bounds__(kMaxThreads<kMarkov>)
@@ -246,32 +274,39 @@ decode_units_kernel(const uint32_t* __restrict__ words, int64_t R, int W,
     int ctx = 0;                               // stays 0 for order-0
 
     auto next = [&]() -> uint32_t {
-      uint32_t e = kMarkov ? s_root[(ctx << kRootBits) | (top >> 24)]
+      uint32_t e = kMarkov ? s_root[(ctx << kRootBits) |
+                                    (top >> (32 - kRootBits))]
                            : s_root[top >> 17];
       int len = (int)(e >> 8);
       uint32_t sym = e & 0xFFu;
       if (kMarkov) {
-        // the escape (a code of 9..15 bits; w >= lim[1..8] already),
-        // computed at every symbol and selected without a branch: its row
-        // loads overlap the root load, and in a warp some lane escapes at
-        // nearly every symbol, so a branch would cost more than it saves
-        const uint32_t* r = s_esc + ctx * kEscStride;
-        const uint32_t l0 = r[0], l1 = r[1], l2 = r[2];
-        const uint32_t b0 = r[3], b1 = r[4], b2 = r[5], b3 = r[6];
-        // all eight loads of the symbol go out together, ahead of the
-        // compares (left to itself the compiler issues the root load
-        // after them, on the chain)
+        // the escape (a code of 8..15 bits; w >= lim[1..7] already),
+        // computed at every symbol and selected without a branch: its lim
+        // row's load overlaps the root load, and in a warp some lane
+        // escapes at nearly every symbol, so a branch would cost more
+        // than it saves
+        const uint4* row =
+            reinterpret_cast<const uint4*>(s_esc + ctx * kEscStride);
+        const uint4 L = row[0];
+        // both loads go out together, ahead of the compares (left to
+        // itself the compiler issues the root load after them, on the
+        // chain)
         asm volatile("" ::: "memory");
         const uint32_t w = top >> 17;
-        const uint32_t ww = w | (w << 16);
-        // 16-bit lanes: w >= lim[9..14]
-        const uint32_t c = __vsetgeu2(ww, l0) + __vsetgeu2(ww, l1) +
-                           __vsetgeu2(ww, l2);
-        const int elen = 9 + (int)(c & 0xFFFFu) + (int)(c >> 16);
-        const int k = elen - 9;
-        const uint64_t q = k < 4 ? ((uint64_t)b1 << 32 | b0)
-                                 : ((uint64_t)b3 << 32 | b2);
-        const int ebf = (int)(int16_t)(uint16_t)(q >> (16 * (k & 3)));
+        // 16-bit lanes: bit 15 of (0x8000 + w) - lim is w >= lim[8..14]
+        // (lim <= 0x8000, so no lane borrows from the next; the pad never
+        // counts)
+        const uint32_t wh = w | w << 16 | 0x80008000u;
+        const uint32_t c = ((wh - L.x) >> 15 & 0x10001u) +
+                           ((wh - L.y) >> 15 & 0x10001u) +
+                           ((wh - L.z) >> 15 & 0x10001u) +
+                           ((wh - L.w) >> 15 & 0x10001u);
+        const int elen = kEscFirst + (int)(c & 0xFFFFu) + (int)(c >> 16);
+        // bf[elen] by its own load: fewer instructions than a select of
+        // the row's halves, and instructions bind the card at many chains
+        // an SM
+        const int ebf =
+            reinterpret_cast<const int16_t*>(row + 1)[elen - kEscFirst];
         const int idx = min(max(ebf + (int)(w >> (15 - elen)), 0), 255);
         const uint32_t esym = s_sym[(ctx << 8) | idx];
         const bool escape = len == 0;
@@ -322,16 +357,11 @@ decode_units_kernel(const uint32_t* __restrict__ words, int64_t R, int W,
 template <bool kMarkov>
 int launch(const uint32_t* words, int64_t R, int64_t W,
            const int32_t* n_valid, const uint8_t* lut, uint8_t* out,
-           int64_t n_out, cudaStream_t stream) {
+           int64_t n_out, int blocks, int threads, cudaStream_t stream) {
   // a unit's words and bytes are counted in 32 bits on the chain
-  if (W >= INT32_MAX || n_out >= INT32_MAX)
+  if (W >= INT32_MAX || n_out >= INT32_MAX || blocks < 1 || threads < 1 ||
+      threads > kMaxThreads<kMarkov>)
     return (int)cudaErrorInvalidValue;
-  // one block per SM at most (the table fills one), threads sized to
-  // the units; units beyond blocks * threads are strided over
-  const int blocks = (int)std::min<int64_t>(mhc_num_sms(), R);
-  const int64_t per = (R + blocks - 1) / blocks;
-  const int threads =
-      (int)std::min<int64_t>(kMaxThreads<kMarkov>, (per + 31) / 32 * 32);
   const int smem = lut_bytes(kMarkov) + threads * kRingStride * 4;
   cudaFuncSetAttribute(decode_units_kernel<kMarkov>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -355,13 +385,17 @@ extern "C" int mhc_decode_lut(const int32_t* lim, const int32_t* base,
 }
 
 // words: (R, W) uint32; lut: mhc_decode_lut's table for the same mode;
-// out: (R, n_out) uint8, every element written.
+// out: (R, n_out) uint8, every element written. blocks, threads: the
+// launch's layout (decode_cuda.layout: a block an SM at most, threads up
+// to 512 for Markov and 1,024 for order-0); units beyond blocks *
+// threads are strided over the blocks.
 extern "C" int mhc_decode_units(const uint32_t* words, int64_t R,
                                 int64_t W, const int32_t* n_valid,
                                 const uint8_t* lut, uint8_t* out,
-                                int64_t n_out, int markov,
-                                cudaStream_t stream) {
-  return markov ? launch<true>(words, R, W, n_valid, lut, out, n_out, stream)
+                                int64_t n_out, int markov, int blocks,
+                                int threads, cudaStream_t stream) {
+  return markov ? launch<true>(words, R, W, n_valid, lut, out, n_out,
+                               blocks, threads, stream)
                 : launch<false>(words, R, W, n_valid, lut, out, n_out,
-                                stream);
+                                blocks, threads, stream);
 }

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import glob
 import os
 import shutil
@@ -104,6 +105,13 @@ def launched(lib, rc: int, kernel: str) -> None:
     """`check` a launch's return code, then count the launch."""
     check(lib, rc, f"{kernel} launch")
     LAUNCHES[kernel] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (sizes the grids)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> int:

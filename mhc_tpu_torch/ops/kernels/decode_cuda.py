@@ -5,14 +5,29 @@ Kernels: csrc/decode.cu (sm_90a), which replaces
 mhc_tpu/ops/kernels/decode_pallas.py::decode_blocks_pallas, both its
 Markov and its order-0 call. `decode_lut` builds the table the decode
 kernel holds in shared memory: for order-0 a direct (sym, len) table
-over the 15-bit window; for Markov a per-context root table over the
-next 8 bits with an escape mark for longer codes, the sorted symbols
-and the escape rows. One thread per unit stream; bounded by the latency
-of each unit's serial symbol chain (see the source note).
+over the 15-bit window (65,536 B); for Markov a per-context root table
+over the next 7 bits with an escape mark for longer codes, the sorted
+symbols and the escape rows (143,360 B).
+
+One thread per unit stream. While the chains are few, each unit's
+serial symbol chain bounds it (~200 cycles a symbol on the H100 against
+~60 instructions; see the source note). `layout` sizes the launch from
+the units and the SM count: a block an SM, threads sized to the units,
+up to 512 for Markov (four chains a scheduler) and 1,024 for order-0,
+each with a 132 B word ring beside the table in the block's 232,448 B
+of shared memory (Markov at 512: 210,944 B). At 12,800 units (100 MB of
+8 KB units) that is 128 threads a block, one round of at most one chain
+a scheduler, the chain's latency times the symbols a unit; up to 16,896
+units (132 SMs x 128) no block takes more than 128 threads. At 294,914
+units (2.4 GB) it is 512 threads, 4.4 rounds of four chains a
+scheduler, where 128 threads would run 18 rounds of one, and issue,
+not the chain, binds a round. `LAYOUTS` counts the launches by their
+threads a block.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -24,15 +39,24 @@ from . import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-_ARGTYPES = [_P, _I64, _I64, _P, _P, _P, _I64, _I, _P]
+_ARGTYPES = [_P, _I64, _I64, _P, _P, _P, _I64, _I, _I, _I, _P]
 _LUT_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P]
 _L = MAX_CODE_LEN + 1
 # the decode table's layout (csrc/decode.cu): root windows; the Markov
-# escape row packs lim[9..14] (3 words) and base - first_code at 9..15 (4
-# words) as 16-bit halves
-ROOT_BITS = {True: 8, False: MAX_CODE_LEN}
+# escape row packs lim[8..14] and a 0x8000 pad (4 words), then base -
+# first_code at 8..15 (4 words), as 16-bit halves, then 4 words of zeros
+ROOT_BITS = {True: 7, False: MAX_CODE_LEN}
 ESC_FIRST = ROOT_BITS[True] + 1
-ESC_STRIDE = 7
+ESC_STRIDE = 12
+# the launch: threads a block at most, each with its word ring (33 words)
+# beside the table in the shared memory a block may have
+MAX_THREADS = {True: 512, False: 1024}
+RING_BYTES = 33 * 4
+SMEM_BYTES = 232_448
+
+# K7 launches by threads a block (one block an SM: the chains in flight
+# on each SM) since the last `LAYOUTS.clear()`; read by no metric
+LAYOUTS: collections.Counter = collections.Counter()
 
 
 def _check_tables(lim, base, first_code, sorted_syms) -> None:
@@ -93,7 +117,7 @@ def decode_units_plain(words, n_valid, lim, base, first_code, sorted_syms,
 
 
 def lut_bytes(markov: bool) -> int:
-    """Bytes of the decode table: the Markov root (256 x 256 u16), u8
+    """Bytes of the decode table: the Markov root (256 x 128 u16), u8
     sorted symbols and escape rows (256 x ESC_STRIDE int32); or the
     order-0 direct table (2**15 u16)."""
     if markov:
@@ -116,12 +140,10 @@ def split_lut(lut: torch.Tensor, markov: bool = True):
         return root, None, None, None
     syms8 = lut[n_root: n_root + 256 * 256].reshape(256, 256)
     words = (lut[n_root + 256 * 256:].view(torch.int32)
-             .reshape(256, ESC_STRIDE).long() & 0xFFFFFFFF)
-    halves = torch.stack([words & 0xFFFF, words >> 16], dim=2).reshape(
-        256, -1)
-    n_lim = MAX_CODE_LEN - ESC_FIRST
-    bf = halves[:, n_lim: n_lim + MAX_CODE_LEN + 1 - ESC_FIRST]
-    return (root, syms8, halves[:, :n_lim],
+             .reshape(256, 3, ESC_STRIDE // 3).long() & 0xFFFFFFFF)
+    lims, bf, _ = torch.stack([words & 0xFFFF, words >> 16], dim=3
+                              ).reshape(256, 3, -1).unbind(1)
+    return (root, syms8, lims[:, :MAX_CODE_LEN - ESC_FIRST],
             torch.where(bf >= 1 << 15, bf - (1 << 16), bf))
 
 
@@ -132,12 +154,13 @@ def decode_lut_plain(lim, base, first_code, sorted_syms,
     contract's len = 1 + #{l in 1..14 : w >= lim[row][l]} and sym =
     sorted_syms[row][clamp(bf[row][len] + (w >> (15 - len)), 0, 255)]
     (bf = base - first_code) as sym | len << 8 when len <= bits, else 0;
-    bits is 8 (Markov, every context) or 15 (order-0, row 0 alone).
+    bits is 7 (Markov, every context) or 15 (order-0, row 0 alone).
     Markov appends the sorted symbols as u8 and each context's escape
-    row of ESC_STRIDE int32 words: lim[9..14] clamped to 0xFFFF, then
-    bf[9..15] clamped to int16, two 16-bit halves a word (low half
-    first; the last high half 0). A window is below 2**15, so neither
-    clamp changes a compare or a clamped symbol index."""
+    row of ESC_STRIDE int32 words: lim[8..14] clamped to 0x8000 and a pad
+    of 0x8000, then bf[8..15] clamped to int16, two 16-bit halves a word
+    (low half first), then zero words. A window is below 2**15, so
+    neither clamp changes a compare or a clamped symbol index, and the
+    pad never counts."""
     bits = ROOT_BITS[markov]
     rows = 256 if markov else 1
     lim64 = lim[:rows].long()
@@ -152,10 +175,13 @@ def decode_lut_plain(lim, base, first_code, sorted_syms,
     parts = [root.to(torch.int16).reshape(-1).view(torch.uint8)]
     if markov:
         halves = torch.cat([
-            lim64[:, ESC_FIRST:MAX_CODE_LEN].clamp(max=0xFFFF),
-            bf[:, ESC_FIRST:].clamp(-(1 << 15), (1 << 15) - 1) & 0xFFFF,
-            torch.zeros_like(bf[:, :1])], dim=1)
+            lim64[:, ESC_FIRST:MAX_CODE_LEN].clamp(max=0x8000),
+            torch.full_like(bf[:, :1], 0x8000),
+            bf[:, ESC_FIRST:].clamp(-(1 << 15), (1 << 15) - 1) & 0xFFFF],
+            dim=1)
         esc = halves[:, 0::2] | halves[:, 1::2] << 16
+        esc = torch.cat([esc, torch.zeros_like(
+            esc[:, :ESC_STRIDE - esc.shape[1]])], dim=1)
         esc = torch.where(esc >= 1 << 31, esc - (1 << 32), esc)
         parts += [sorted_syms.to(torch.uint8).reshape(-1),
                   esc.to(torch.int32).reshape(-1).view(torch.uint8)]
@@ -186,6 +212,18 @@ def decode_lut(lim: torch.Tensor, base: torch.Tensor,
         return lut
 
 
+def layout(R: int, sms: int, markov: bool = True) -> tuple[int, int]:
+    """(blocks, threads) of a K7 launch over R >= 1 units on `sms` SMs:
+    a block an SM at most (the table fills most of its shared memory),
+    its threads the units a block rounded up to a warp, at most
+    MAX_THREADS[markov]; units beyond blocks * threads are strided over
+    the blocks. So the launch keeps as many chains in flight as the
+    units fill, and at most 128 threads a block up to R = sms * 128."""
+    blocks = min(sms, R)
+    per = -(-R // blocks)
+    return blocks, min(MAX_THREADS[markov], -(-per // 32) * 32)
+
+
 def decode_units(words: torch.Tensor, n_valid: torch.Tensor,
                  lim: torch.Tensor, base: torch.Tensor,
                  first_code: torch.Tensor, sorted_syms: torch.Tensor,
@@ -195,7 +233,7 @@ def decode_units(words: torch.Tensor, n_valid: torch.Tensor,
     context is the previous symbol (markov) or 0 throughout (order-0,
     which reads only row 0 of each table). CPU tensors take the plain
     version; CUDA tensors build the decode table (`decode_lut`) and
-    launch K7m or K7o."""
+    launch K7m or K7o in `layout`'s shape."""
     kernel = "decode_units" if markov else "decode_units_order0"
     with span("mhc.launch." + kernel):
         if _check(words, n_valid, lim, base, first_code, sorted_syms) == "cpu":
@@ -207,8 +245,11 @@ def decode_units(words: torch.Tensor, n_valid: torch.Tensor,
         if R * n_out == 0:
             return out
         lut = decode_lut(lim, base, first_code, sorted_syms, markov)
+        blocks, threads = layout(R, _build.sm_count(dev), markov)
         lib, fn = _build.load("decode", "mhc_decode_units", _ARGTYPES)
         rc = fn(words.data_ptr(), R, W, n_valid.data_ptr(), lut.data_ptr(),
-                out.data_ptr(), n_out, int(markov), _build.stream_ptr(dev))
+                out.data_ptr(), n_out, int(markov), blocks, threads,
+                _build.stream_ptr(dev))
         _build.launched(lib, rc, kernel)
+        LAYOUTS[threads] += 1
         return out

@@ -29,7 +29,6 @@ The output of both is zeroed here, as the kernels require.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -80,11 +79,6 @@ def order0_hist_plain(units: torch.Tensor,
                           minlength=256)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _launch(fn_name: str, kernel: str, units: torch.Tensor,
             n_valid: torch.Tensor, shape: tuple) -> torch.Tensor:
     markov = kernel == "markov_hist"
@@ -96,7 +90,7 @@ def _launch(fn_name: str, kernel: str, units: torch.Tensor,
         return out
     scratch = ()
     if markov:
-        rows = _sm_count(units.device)
+        rows = _build.sm_count(units.device)
         partial = torch.empty((rows, _K1_ROW_WORDS), dtype=torch.int32,
                               device=units.device)
         scratch = (partial.data_ptr(), rows)

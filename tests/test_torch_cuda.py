@@ -251,16 +251,33 @@ def _edge_lengths(kind: str, markov: bool, seed: int) -> np.ndarray:
     return model.lengths_from_counts(np.minimum(counts, 1 << 30))
 
 
+# Unit counts around K7's layout switch (`decode_cuda.layout`) on a card
+# of S SMs: at most 128 threads a block up to S * 128 units, more past it;
+# the last, past two rounds of 512 threads a block, ends in a partial one.
+_K7_SWITCH = {"S*128-1": lambda s: s * 128 - 1, "S*128": lambda s: s * 128,
+              "S*128+1": lambda s: s * 128 + 1,
+              "2*S*512+S*100+7": lambda s: 2 * s * 512 + s * 100 + 7}
+
+
+def _k7_units(R, dev) -> int:
+    return _K7_SWITCH[R](_build.sm_count(dev)) if isinstance(R, str) else R
+
+
 @pytest.mark.parametrize("mode", ["markov", "huffman"])
 @pytest.mark.parametrize("kind", ["skewed", "all15"])
 @pytest.mark.parametrize("R,n", [(1, 8192), (7, 8192), (133, 512),
-                                 (300, 16384), (45, 1024), (5, 1000)])
+                                 (300, 16384), (45, 1024), (5, 1000),
+                                 *((r, n) for r in _K7_SWITCH
+                                   for n in (512, 1000))])
 def test_k3_and_k7_edges_equal_plain_versions(dev, mode, kind, R, n):
     """K3 (a warp per unit, lane chunks) and K7 (table-driven) at the
     edges: n_valid of 0, 1, 31, 33, 257 and a last unit cut short; one
     unit; R not a multiple of a block or of the warps of the grid; widths
-    off the 16-byte paths; all-15-bit codes."""
+    off the 16-byte paths; all-15-bit codes; R on both sides of K7's
+    layout switch and past two rounds of its largest layout, with the
+    launch in `decode_cuda.layout`'s shape."""
     markov = mode == "markov"
+    R = _k7_units(R, dev)
     rng = np.random.default_rng(R * n)
     lengths = _edge_lengths(kind, markov, R + n)
     model = get_model(mode)
@@ -279,12 +296,34 @@ def test_k3_and_k7_edges_equal_plain_versions(dev, mode, kind, R, n):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     words = got[0]
     args = (nv, t["lim"], t["base"], t["first_code"], t["sorted_syms"])
+    decode_cuda.LAYOUTS.clear()
     out = decode_cuda.decode_units(words, *args, n_out=n, markov=markov)
     torch.cuda.synchronize()
+    assert dict(decode_cuda.LAYOUTS) == {
+        decode_cuda.layout(R, _build.sm_count(dev), markov)[1]: 1}
     assert torch.equal(out, decode_cuda.decode_units_plain(
         words, *args, n_out=n, markov=markov))
     valid = torch.arange(n, device=dev)[None, :] < nv[:, None]
     assert torch.equal(out[valid], units[valid])
+
+
+@pytest.mark.parametrize("R", ["S*128-1", "S*128+1", "2*S*512+S*100+7"])
+def test_engine_round_trip_across_k7_layouts(dev, R):
+    """engine.encode -> engine.decode on 512-byte units below K7m's
+    layout switch (at most 128 threads a block), just past it, and past
+    two rounds of 512 threads a block; `decode_cuda.LAYOUTS` shows the
+    launch's threads a block."""
+    R = _k7_units(R, dev)
+    data = _data(R * 512 - 37, R)
+    st = engine.stage(data, decode_unit=512, device=dev)
+    assert st.n_units == R
+    enc = engine.encode(st)
+    decode_cuda.LAYOUTS.clear()
+    out = engine.decode(enc)
+    threads = decode_cuda.layout(R, _build.sm_count(dev))[1]
+    assert dict(decode_cuda.LAYOUTS) == {threads: 1}
+    assert (threads > 128) == (R > 128 * _build.sm_count(dev))
+    assert engine.fetch_bytes(enc, out) == data
 
 
 def _tile_case(dev, kind: str, R: int, n: int):

@@ -6,7 +6,7 @@ For every context and every 15-bit window w, the contract gives
 len = 1 + #{l in 1..14 : w >= lim[l]} and sym = sorted_syms[clamp(bf[len]
 + (w >> (15 - len)), 0, 255)]. The table's entry for w's root window must
 be exactly sym | len << 8, or the escape mark 0 iff len > the root's bits
-(8 for Markov, 15 for order-0, which then never escapes). Length sets:
+(7 for Markov, 15 for order-0, which then never escapes). Length sets:
 random valid ones, the all-15-bit worst case (every window escapes), and
 the Markov and order-0 lengths of make_corpus(1 MB). `_lut_decode`
 replays the decode kernel's loop (root entry, escape rows, sorted u8
@@ -111,7 +111,7 @@ def test_decode_lut_plain_follows_the_contract_for_every_window(case,
 def _lut_decode(words, n_valid, lut, n_out: int, markov: bool):
     """The decode kernel's loop in torch, vectorised over units: the root
     entry of the context and window, else (escape) the escape row's
-    compares over lengths 9..15 and the sorted u8 symbols."""
+    compares over lengths 8..15 and the sorted u8 symbols."""
     R, W = words.shape
     bits = decode_cuda.ROOT_BITS[markov]
     root, syms8, lims, bfs = decode_cuda.split_lut(lut, markov)
@@ -190,3 +190,75 @@ def test_decode_lut_takes_cpu_tensors_to_its_plain_version():
                        decode_cuda.decode_lut_plain(*args))
     with pytest.raises(ValueError, match="lim"):
         decode_cuda.decode_lut(t["lim"][:, :8], *args[1:])
+
+
+# The launch's layout (`decode_cuda.layout`), a pure function of the
+# units R, the SM count and the mode.
+_SMS = [132, 114, 1]
+
+
+def _capped(R: int, sms: int, cap: int) -> tuple:
+    """A block an SM at most, threads the units a block rounded up to a
+    warp, at most `cap`."""
+    blocks = min(sms, R)
+    per = -(-R // blocks)
+    return blocks, min(cap, -(-per // 32) * 32)
+
+
+@pytest.mark.parametrize("sms", _SMS)
+def test_layout_keeps_128_threads_a_block_up_to_128_units_an_sm(sms):
+    for R in range(1, sms * 128 + 1):
+        assert decode_cuda.layout(R, sms) == _capped(R, sms, 128)
+
+
+def test_layout_runs_four_chains_a_scheduler_at_294914_units():
+    blocks, threads = decode_cuda.layout(294_914, 132)
+    assert (blocks, threads) == (132, 512)
+    # 4.4 rounds: the last one partial, spread over every block
+    assert -(-294_914 // (blocks * threads)) == 5
+    assert decode_cuda.layout(16_897, 132) == (132, 160)
+
+
+@pytest.mark.parametrize("markov", [True, False], ids=["markov", "order0"])
+@pytest.mark.parametrize("sms", _SMS)
+def test_layout_is_monotone_in_the_units(sms, markov):
+    prev = (0, 0)
+    for R in [*range(1, 70_000, 7), *range(70_000, 400_000, 997)]:
+        blocks, threads = decode_cuda.layout(R, sms, markov)
+        assert blocks >= prev[0] and threads >= prev[1]
+        assert 1 <= blocks <= sms and threads % 32 == 0
+        assert threads <= decode_cuda.MAX_THREADS[markov]
+        prev = blocks, threads
+
+
+@pytest.mark.parametrize("markov", [True, False], ids=["markov", "order0"])
+def test_every_layout_fits_the_shared_memory_of_a_block(markov):
+    threads = {decode_cuda.layout(R, 132, markov)[1]
+               for R in range(1, 1_000_000, 101)}
+    assert max(threads) == decode_cuda.MAX_THREADS[markov]
+    for t in threads:
+        smem = decode_cuda.lut_bytes(markov) + t * decode_cuda.RING_BYTES
+        assert smem <= decode_cuda.SMEM_BYTES
+    assert decode_cuda.lut_bytes(True) == 143_360
+
+
+def test_order0_layout_keeps_1024_threads_a_block():
+    for R in [*range(1, 20_000, 3), 135_168, 135_169, 1_000_000]:
+        assert decode_cuda.layout(R, 132, False) == _capped(R, 132, 1024)
+
+
+def test_layout_constants_match_the_kernel_source():
+    """The wrapper's copy of the kernel's caps and table layout."""
+    import pathlib
+    import re
+    src = (pathlib.Path(__file__).parents[1] / "mhc_tpu_torch" / "csrc"
+           / "decode.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert re.search(r"kMaxThreads = kMarkov \? (\d+) : (\d+);", src
+                     ).groups() == tuple(
+        str(decode_cuda.MAX_THREADS[m]) for m in (True, False))
+    assert (const("kRing") + 1) * 4 == decode_cuda.RING_BYTES
+    assert const("kRootBits") == decode_cuda.ROOT_BITS[True]
+    assert const("kEscStride") == decode_cuda.ESC_STRIDE
